@@ -1,0 +1,345 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the root of a checkout on a machine with one CUDA card::
+
+    python3 chip_smoke.py
+
+It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
+(one ``nvcc`` per source, all at once), then drives the port's main path
+through the public entry points at chromosome scale:
+
+1. ``[build]``   ``SuffixTable.from_codes`` over 2**26 random bases on
+                 the card (SA by prefix doubling, text packed by pack2bit);
+2. ``[count]``   the paper's workload (10,000 random patterns of 1-100
+                 bases) through ``SuffixTable.scan`` in batches of 512;
+3. ``[append]``  three appends of 2**17 bases: the second seals a run at
+                 ``memtable_limit``, so a run and a memtable are live;
+4. ``[merged]``  the workload again over base + run + memtable (the tier
+                 scan kernel), then ``locate(top_k=5)``;
+5. ``[kernels]`` every kernel's launches on that run (must be > 0) and
+                 its result held against its plain PyTorch version on
+                 inputs taken from that run; a sample of counts is
+                 checked against a numpy brute-force scan of the text.
+
+It prints one JSON line of per-kernel numbers and, last, the device
+line.  Any build, launch or mismatch failure exits non-zero without it.
+It imports neither jax nor the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+TEXT_LEN = 2**26
+MEMTABLE_LIMIT = 2**18
+APPEND_LEN = 2**17
+N_QUERIES = 10_000
+BATCH = 512
+MAX_QUERY_LEN = 128
+
+# Published H100 SXM peaks (NVIDIA data sheet), used for the bounds.
+MEM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12          # float32 outside the tensor cores
+
+
+def cuda_ms(torch, fn, reps: int) -> float:
+    """Mean device time of ``fn`` in ms over ``reps`` runs after one
+    warm-up, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    t_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
+    t_ops = n_ops / ALU_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_abs_err(torch, got, want) -> int:
+    err = 0
+    for g, w in zip(got, want):
+        d = (g.to(torch.int64) - w.to(torch.int64)).abs()
+        err = max(err, int(d.max()) if d.numel() else 0)
+    return err
+
+
+def brute_positions(np, text, pattern):
+    """All start positions of ``pattern`` in ``text`` (uint8 codes), by a
+    vectorised numpy scan that filters candidates one base at a time."""
+    L = len(pattern)
+    cand = np.flatnonzero(text[:len(text) - L + 1] == pattern[0])
+    for k in range(1, L):
+        cand = cand[text[cand + k] == pattern[k]]
+    return cand
+
+
+def profile_merged(torch, table, patterns) -> None:
+    """Device busy share and top kernels over four merged batches (cache
+    cleared), by torch.profiler; outside the counted main path."""
+    from torch.profiler import ProfilerActivity, profile
+    table.clear_cache()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(0, 4 * BATCH, BATCH):
+                table.scan(patterns[i:i + BATCH])
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        dev_us = sum(getattr(e, "self_device_time_total", 0.0)
+                     for e in kernels)
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        print(f"[profile:merged] batches=4 wall_ms={wall_us / 1e3:.3f} "
+              f"device_busy_ms={dev_us / 1e3:.3f} "
+              f"device_busy_share={dev_us / wall_us:.4f}", flush=True)
+        for e in top:
+            print(f"[profile:kernel] {e.key[:60]} calls={e.count} "
+                  f"device_ms={e.self_device_time_total / 1e3:.3f}",
+                  flush=True)
+    except (RuntimeError, AttributeError) as exc:   # profiler unavailable
+        print(f"[profile:merged] not measured: {exc}", flush=True)
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.api import SuffixTable
+    from repro_torch.core import codec
+    from repro_torch.core import query as Q
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import tier_scan as TS
+    from repro_torch.kernels.pack2bit import pack2bit_cuda
+    from repro_torch.kernels.pattern_scan import (bounded_search_cuda,
+                                                  pattern_compare_cuda)
+
+    failures: list[str] = []
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(what)
+            print(f"[FAIL] {what}", flush=True)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"[device] {smi}", flush=True)
+    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}", flush=True)
+
+    t0 = time.perf_counter()
+    _build.build()
+    print(f"[nvcc] built {', '.join(_build.SOURCES)} in "
+          f"{time.perf_counter() - t0:.3f} s into {_build.BUILD_DIR}",
+          flush=True)
+
+    # ---------------- main path: every launch from here is counted ------
+    _build.reset_launches()
+    base = codec.random_dna(TEXT_LEN, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    table = SuffixTable.from_codes(base, is_dna=True,
+                                   max_query_len=MAX_QUERY_LEN,
+                                   memtable_limit=MEMTABLE_LIMIT)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"[build] n={TEXT_LEN} seconds={dt:.4f} "
+          f"mbase_per_s={TEXT_LEN / dt / 1e6:.3f} "
+          f"resident_bytes={torch.cuda.memory_allocated()} "
+          f"peak_bytes={torch.cuda.max_memory_allocated()}", flush=True)
+    check(table.store.device.type == "cuda", "table lives on the card")
+
+    patterns = Q.random_patterns(N_QUERIES, 1, 100, seed=0)
+
+    def serve(tag: str) -> np.ndarray:
+        lat, counts = [], []
+        table.tracer.reset()
+        t_all = time.perf_counter()
+        for i in range(0, N_QUERIES, BATCH):
+            t = time.perf_counter()
+            out = table.scan(patterns[i:i + BATCH])
+            lat.append((time.perf_counter() - t) * 1e3)
+            counts.append(out.count)
+        total = time.perf_counter() - t_all
+        c = np.concatenate(counts)
+        lat = np.asarray(lat)
+        print(f"[{tag}] queries={len(c)} batches={len(lat)} "
+              f"p50_ms={np.percentile(lat, 50):.4f} "
+              f"p99_ms={np.percentile(lat, 99):.4f} "
+              f"queries_per_s={len(c) / total:.1f} "
+              f"found={int((c > 0).sum())}", flush=True)
+        check(c.shape == (N_QUERIES,) and bool((c >= 0).all()),
+              f"{tag}: counts have the expected shape and are >= 0")
+        spans = table.tracer.snapshot()
+        print(f"[spans:{tag}] " + " ".join(
+            f"{k}:sum_ms={v['sum_ms']},p50_ms={v['p50_ms']}"
+            for k, v in spans.items()), flush=True)
+        return c
+
+    base_counts = serve("count")
+    appended = [codec.random_dna(APPEND_LEN, seed=1 + i) for i in range(3)]
+    for chunk in appended:
+        table.append(chunk)
+    st = table.stats()["tiers"]
+    print(f"[append] runs={st['run_count']} run_rows={st['run_rows']} "
+          f"memtable_rows={st['memtable_rows']}", flush=True)
+    check(st["run_count"] == 1 and st["memtable_rows"] == APPEND_LEN,
+          "one sealed run and one live memtable after three appends")
+    merged_counts = serve("merged")
+    loc_pats = ["ACGT", "GATTACA", "TTTT"]
+    located = table.locate(loc_pats, top_k=5)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    # ---------------- end of the main path ------------------------------
+    print(f"[locate] {json.dumps({p: located[i].tolist() for i, p in enumerate(loc_pats)})}",
+          flush=True)
+    check(bool((merged_counts >= base_counts).all()),
+          "appends never lower a count")
+
+    # brute-force sample over the base text and the whole logical text
+    text = np.concatenate([base] + appended)
+    rng = np.random.default_rng(0)
+    sample = rng.choice(N_QUERIES, size=16, replace=False)
+    ok = True
+    for i in sample:
+        p = codec.encode_dna(patterns[i])
+        want_base = len(brute_positions(np, base, p))
+        want_all = len(brute_positions(np, text, p))
+        ok &= base_counts[i] == want_base and merged_counts[i] == want_all
+    print(f"[brute] patterns=16 match={str(bool(ok)).lower()}", flush=True)
+    check(bool(ok), "counts agree with a brute-force scan of the text")
+    for i, p in enumerate(loc_pats):
+        want = brute_positions(np, text, codec.encode_dna(p))[:5]
+        got = located[i][located[i] >= 0]
+        check(np.array_equal(got, want), f"locate({p!r}) = smallest positions")
+
+    # ---------------- each kernel against its plain version -------------
+    store = table.store
+    dev = store.device
+    patt, plen = table.planner.encode(patterns[:BATCH])
+    B, W = patt.shape
+    rows = []
+
+    def row(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops,
+            library_ms=None):
+        b, by = bound_ms(n_bytes, n_ops)
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b, "bound_by": by,
+                     "library_ms": library_ms})
+        check(launches[name] > 0, f"{name} launched on the main path")
+        check(err == 0, f"{name} equals its plain version")
+
+    # pack2bit over the whole base text
+    codes = torch.from_numpy(base).to(dev)
+    n_words = codec.packed_length(TEXT_LEN)
+    lanes = codes.to(torch.int64).reshape(n_words, 16)
+    got = pack2bit_cuda(codes)
+    want = ref.pack2bit_ref(lanes.T)
+    err = max_abs_err(torch, [codec.words_i64(got)], [codec.words_i64(want)])
+    check(torch.equal(got.view(torch.int32),
+                      store.text_packed.view(torch.int32)),
+          "pack2bit output is the table's packed text")
+    shifts = 30 - 2 * torch.arange(16, dtype=torch.int64, device=dev)
+    row("pack2bit", "src/repro_torch/kernels/csrc/pack2bit.cu",
+        "src/repro/kernels/pack2bit.py:30", err,
+        cuda_ms(torch, lambda: pack2bit_cuda(codes), 20),
+        cuda_ms(torch, lambda: ref.pack2bit_ref(lanes.T), 3),
+        TEXT_LEN + 4 * n_words, 2 * 16 * n_words,
+        library_ms=cuda_ms(torch, lambda: (lanes << shifts).sum(dim=1), 5))
+
+    # bounded_search on the base store, first batch of the workload
+    steps = Q.search_steps(store.n_pad)
+    lb, ub = bounded_search_cuda(store.sa, store.text_packed, store.n_real,
+                                 patt, plen, store.n_pad)
+    plb, pub = Q.search_bounds_plain(store, patt, plen)
+    row("bounded_search", "src/repro_torch/kernels/csrc/pattern_scan.cu",
+        "src/repro/kernels/pattern_scan.py:55",
+        max_abs_err(torch, [lb, ub], [plb, pub]),
+        cuda_ms(torch, lambda: bounded_search_cuda(
+            store.sa, store.text_packed, store.n_real, patt, plen,
+            store.n_pad), 20),
+        cuda_ms(torch, lambda: Q.search_bounds_plain(store, patt, plen), 2),
+        2 * B * steps * 12 + B * W * 4 + 3 * B * 4, 2 * B * steps * W)
+
+    # pattern_compare on the suffixes at those lower bounds
+    pos = store.sa[lb.clamp(0, store.n_pad - 1).to(torch.int64)]
+    win = codec.extract_window(store.text_packed, pos, W)
+    got = pattern_compare_cuda(win, patt, plen, pos, n_real=store.n_real)
+    want = ref.pattern_compare_ref(win.T, patt.T, plen, pos,
+                                   n_real=store.n_real)
+    row("pattern_compare", "src/repro_torch/kernels/csrc/pattern_scan.cu",
+        "src/repro/kernels/pattern_scan.py:55",
+        max_abs_err(torch, got, want),
+        cuda_ms(torch, lambda: pattern_compare_cuda(
+            win, patt, plen, pos, n_real=store.n_real), 50),
+        cuda_ms(torch, lambda: ref.pattern_compare_ref(
+            win.T, patt.T, plen, pos, n_real=store.n_real), 5),
+        2 * B * W * 4 + 2 * B * 4 + 3 * B, B * W)
+
+    # tier_scan over the live run + memtable
+    stack = table._tierset().stack
+    wt = ops.tier_windows(stack, W)
+    meta = ops.tier_meta(stack)
+    pt = patt.T.contiguous()
+    got = TS.tier_scan_cuda(pt, plen, wt, stack.sa, meta)
+    t1 = time.perf_counter()
+    want = ref.tier_scan_ref(pt, plen, wt, stack.sa, meta)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    twin = TS.fused_tier_scan(stack, patt, plen)
+    err = max(max_abs_err(torch, got, want), max_abs_err(torch, got, twin))
+    T, _, R = wt.shape
+    pairs = B * int(stack.n_rows.sum())
+    row("tier_scan", "src/repro_torch/kernels/csrc/tier_scan.cu",
+        "src/repro/kernels/tier_scan.py:338", err,
+        cuda_ms(torch, lambda: TS.tier_scan_cuda(pt, plen, wt, stack.sa,
+                                                 meta), 10),
+        plain_ms, T * W * R * 4 + T * R * 4 + W * B * 4 + B * 4 + T * 32
+        + 4 * T * B * 4, pairs)
+    print(f"[tiers] T={T} rows={R} n_rows={stack.n_rows.tolist()} "
+          f"twin_ms={cuda_ms(torch, lambda: TS.fused_tier_scan(stack, patt, plen), 2):.4f}",
+          flush=True)
+
+    profile_merged(torch, table, patterns)
+
+    print("[kernels] " + " ".join(
+        f"{r['name']}:launches={r['launches']},match="
+        f"{str(r['max_abs_err'] == 0).lower()}" for r in rows), flush=True)
+    print(f"[memory] peak_bytes={torch.cuda.max_memory_allocated()}",
+          flush=True)
+    print(smi, flush=True)          # card name and power limit, as is
+    if failures:
+        print(f"chip_smoke: {len(failures)} check(s) failed: {failures}",
+              file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

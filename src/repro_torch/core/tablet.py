@@ -1,0 +1,253 @@
+"""TabletStore and TierStack — the port of ``repro.core.tablet``.
+
+The text is stored once (2-bit packed ``uint32`` words for DNA, int32
+codes padded with -1 for every table) and the "table" is the globally
+sorted suffix array.  Pad rows (positions ``n_real .. n_pad-1``) sort
+first and are inert for every query.  Text positions stay below
+``2**30``: ``BIG = 2**30`` is the "no match" sentinel downstream.
+
+Single device only: a mesh raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import codec
+from repro_torch.core.suffix_array import build_suffix_array
+from repro_torch.device import DeviceLike, resolve_device
+
+MAX_POSITIONS = 2**30
+
+
+@dataclasses.dataclass(frozen=True)
+class TabletStore:
+    """One suffix-array "table".  ``sa`` is the padded, globally sorted
+    suffix array; pad rows (positions >= n_real) sort first."""
+    text_packed: Optional[torch.Tensor]  # (n_words,) uint32 | None
+    text_codes: Optional[torch.Tensor]   # (n_pad,)  int32  | None
+    sa: torch.Tensor                     # (n_pad,)  int32
+    n_real: int
+    n_pad: int
+    is_dna: bool
+    max_query_len: int
+
+    @property
+    def pad_count(self) -> int:
+        return self.n_pad - self.n_real
+
+    @property
+    def device(self) -> torch.device:
+        return self.sa.device
+
+
+@dataclasses.dataclass(frozen=True)
+class TierStack:
+    """All delta tiers (sealed runs + memtable) stacked into one
+    rectangular device view; see ``repro.core.tablet.TierStack`` for the
+    straddle rule ``lo < g + plen <= hi`` and the four host-precomputed
+    structures (``ov_rank``/``hi_rank``/``pad_cnt``/``rmq``) the plain
+    binary-search path uses to apply it."""
+    text_packed: Optional[torch.Tensor]  # (T, W_max)  uint32 | None
+    text_codes: Optional[torch.Tensor]   # (T, rows)   int32
+    sa: torch.Tensor                     # (T, rows)   int32, pad rows 0
+    n_real: torch.Tensor                 # (T,) int32  compare depth cap
+    n_rows: torch.Tensor                 # (T,) int32  real sorted rows
+    offset: torch.Tensor                 # (T,) int32  local -> global
+    lo: torch.Tensor                     # (T,) int32  owned range, open
+    hi: torch.Tensor                     # (T,) int32  owned range, closed
+    ov_rank: torch.Tensor                # (T, OV) int32
+    hi_rank: torch.Tensor                # (T, OV) int32
+    pad_cnt: torch.Tensor                # (T, rows+1) int32
+    rmq: torch.Tensor                    # (T, K, rows) int32
+    num_tiers: int
+    rows: int
+    is_dna: bool
+    max_query_len: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.sa.device
+
+
+_STACK_ARRAYS = ("text_packed", "text_codes", "sa", "n_real", "n_rows",
+                 "offset", "lo", "hi", "ov_rank", "hi_rank", "pad_cnt",
+                 "rmq")
+
+
+def _stack_from_host(arrays: dict, *, num_tiers: int, rows: int,
+                     is_dna: bool, max_query_len: int,
+                     device: torch.device) -> TierStack:
+    dev = {k: (None if arrays.get(k) is None
+               else codec.as_tensor(arrays[k], device))
+           for k in _STACK_ARRAYS}
+    return TierStack(**dev, num_tiers=int(num_tiers), rows=int(rows),
+                     is_dna=bool(is_dna), max_query_len=int(max_query_len))
+
+
+def stack_tier_stores(stores, *, offsets, bounds) -> TierStack:
+    """Stack per-tier segment stores into one :class:`TierStack` on the
+    stores' device.  ``offsets[t]`` is the tier's local->global shift,
+    ``bounds[t] = (lo, hi)`` its owned global range.  Pad words/codes
+    read as 0/-1, exactly what a tier's own arrays return past its end.
+    The precompute is host numpy, as in the reference."""
+    assert stores, "need at least one tier"
+    T = len(stores)
+    rows = max(s.n_pad for s in stores)
+    is_dna = stores[0].is_dna
+    assert all(s.is_dna == is_dna for s in stores)
+    sa = np.zeros((T, rows), np.int32)
+    packed = None
+    if is_dna:
+        packed = np.zeros((T, codec.packed_length(rows)), np.uint32)
+    codes = np.full((T, rows), -1, np.int32)
+    for t, s in enumerate(stores):
+        sa[t, :s.n_pad] = s.sa.cpu().numpy()
+        codes[t, :s.n_pad] = s.text_codes.cpu().numpy()
+        if is_dna:
+            pk = s.text_packed.cpu().numpy()
+            packed[t, :pk.shape[0]] = pk
+    meta = np.zeros((5, T), np.int32)
+    meta[0] = [s.n_real for s in stores]
+    meta[1] = [s.n_pad for s in stores]
+    meta[2] = np.asarray(offsets, np.int32)
+    meta[3] = [b[0] for b in bounds]
+    meta[4] = [b[1] for b in bounds]
+    for t, s in enumerate(stores):
+        tl = int(meta[4][t]) - int(meta[2][t])    # true text length
+        if not (0 <= int(meta[3][t]) - int(meta[2][t]) < tl <= s.n_real):
+            raise ValueError(
+                f"tier {t}: bounds ({int(meta[3][t])}, {int(meta[4][t])}) "
+                f"inconsistent with offset={int(meta[2][t])}, "
+                f"n_real={s.n_real}")
+    overlaps = meta[3] - meta[2]
+    mq1 = max(s.max_query_len for s in stores) - 1
+    edge = max(int(overlaps.max()), mq1, 1)
+    OV = 1 << (edge - 1).bit_length()
+    K = rows.bit_length()                         # rows is a power of 2
+    BIG = np.int32(MAX_POSITIONS)
+    ov_rank = np.full((T, OV), BIG, np.int32)
+    hi_rank = np.full((T, OV), BIG, np.int32)
+    pad_cnt = np.zeros((T, rows + 1), np.int32)
+    rmq = np.full((T, K, rows), BIG, np.int32)
+    for t, s in enumerate(stores):
+        sa_t = sa[t, :s.n_pad]
+        ov_t = int(overlaps[t])
+        tl = int(meta[4][t]) - int(meta[2][t])
+        in_ov = np.flatnonzero(sa_t < ov_t)
+        ov_rank[t, sa_t[in_ov]] = in_ov
+        at_end = np.flatnonzero((sa_t >= max(tl - OV, 0)) & (sa_t < tl))
+        hi_rank[t, tl - 1 - sa_t[at_end]] = at_end
+        pad_cnt[t, 1:s.n_pad + 1] = np.cumsum(sa_t >= tl)
+        pad_cnt[t, s.n_pad + 1:] = pad_cnt[t, s.n_pad]
+        rmq[t, 0, :s.n_pad] = np.where(
+            (sa_t >= ov_t) & (sa_t < tl), sa_t + int(meta[2][t]), BIG)
+        for k in range(1, K):
+            h = 1 << (k - 1)
+            rmq[t, k, :rows - h] = np.minimum(rmq[t, k - 1, :rows - h],
+                                              rmq[t, k - 1, h:])
+            rmq[t, k, rows - h:] = rmq[t, k - 1, rows - h:]
+    arrays = dict(text_packed=packed, text_codes=codes, sa=sa,
+                  n_real=meta[0], n_rows=meta[1], offset=meta[2],
+                  lo=meta[3], hi=meta[4], ov_rank=ov_rank, hi_rank=hi_rank,
+                  pad_cnt=pad_cnt, rmq=rmq)
+    return _stack_from_host(
+        arrays, num_tiers=T, rows=rows, is_dna=is_dna,
+        max_query_len=min(s.max_query_len for s in stores),
+        device=stores[0].device)
+
+
+def tierstack_from_numpy(fields: dict, device: DeviceLike = None
+                         ) -> TierStack:
+    """A :class:`TierStack` from a reference ``TierStack``'s fields given
+    as numpy arrays / Python scalars (``text_packed`` may be None)."""
+    return _stack_from_host(
+        fields, num_tiers=fields["num_tiers"], rows=fields["rows"],
+        is_dna=fields["is_dna"], max_query_len=fields["max_query_len"],
+        device=resolve_device(device))
+
+
+def _finalize_store(codes, sa: torch.Tensor, n_pad: int, *, is_dna: bool,
+                    max_query_len: int) -> TabletStore:
+    """Pack and pad the text on the SA's device.  DNA text is packed by
+    the pack2bit kernel on a CUDA device (``kernels.ops.pack2bit``)."""
+    from repro_torch.kernels import ops
+    dev = sa.device
+    c = codec.as_tensor(codes, dev)
+    n_real = int(c.shape[0])
+    if n_pad >= MAX_POSITIONS:
+        raise ValueError(f"{n_pad} rows: text positions must stay below "
+                         f"2**30 (the BIG no-match sentinel)")
+    text_packed = ops.pack2bit(c.to(torch.uint8)) if is_dna else None
+    text_codes = torch.nn.functional.pad(c.to(torch.int32),
+                                         (0, n_pad - n_real), value=-1)
+    return TabletStore(text_packed=text_packed, text_codes=text_codes,
+                       sa=sa.to(torch.int32), n_real=n_real, n_pad=n_pad,
+                       is_dna=bool(is_dna), max_query_len=max_query_len)
+
+
+def store_from_arrays(codes, sa_real, *, is_dna: bool,
+                      max_query_len: int = 128, num_tablets: int = 1,
+                      min_rows: int = 0, device: DeviceLike = None
+                      ) -> TabletStore:
+    """Assemble a store from the text and its real-row suffix array
+    (numpy or tensors).  Pad rows ``n_pad-1, ..., n_real`` are prepended:
+    they sort before all real rows (see the reference's docstring)."""
+    dev = resolve_device(device)
+    c = codec.as_tensor(codes, dev)
+    sa_real = codec.as_tensor(sa_real, dev).to(torch.int32)
+    n_real = int(c.shape[0])
+    if sa_real.shape[0] != n_real:
+        raise ValueError(f"sa_real has {sa_real.shape[0]} rows for "
+                         f"{n_real} text symbols")
+    p = num_tablets
+    m = int(np.ceil(max(n_real, min_rows, 1) / p))
+    n_pad = m * p
+    pads = torch.arange(n_pad - 1, n_real - 1, -1, dtype=torch.int32,
+                        device=dev)
+    return _finalize_store(c, torch.cat([pads, sa_real]), n_pad,
+                           is_dna=bool(is_dna), max_query_len=max_query_len)
+
+
+def store_from_numpy(fields: dict, device: DeviceLike = None
+                     ) -> TabletStore:
+    """The port's store from a reference ``TabletStore``'s fields as
+    numpy arrays / scalars: ``text_packed`` (uint32 or None),
+    ``text_codes``, ``sa``, ``n_real``, ``n_pad``, ``is_dna``,
+    ``max_query_len``.  Feeds the same index to both packages."""
+    dev = resolve_device(device)
+    tp = fields.get("text_packed")
+    tc = fields.get("text_codes")
+    return TabletStore(
+        text_packed=None if tp is None else codec.as_tensor(
+            np.asarray(tp, np.uint32), dev),
+        text_codes=None if tc is None else codec.as_tensor(
+            np.asarray(tc, np.int32), dev),
+        sa=codec.as_tensor(np.asarray(fields["sa"], np.int32), dev),
+        n_real=int(fields["n_real"]), n_pad=int(fields["n_pad"]),
+        is_dna=bool(fields["is_dna"]),
+        max_query_len=int(fields["max_query_len"]))
+
+
+def build_tablet_store(codes, *, is_dna: bool | None = None,
+                       max_query_len: int = 128, num_tablets: int = 1,
+                       min_rows: int = 0, mesh=None,
+                       device: DeviceLike = None) -> TabletStore:
+    """Build the store on one device (``cuda`` unless ``device`` says
+    otherwise): suffix array by prefix doubling, text packed there."""
+    if mesh is not None:
+        raise NotImplementedError("repro_torch builds on a single device; "
+                                  "meshes are not ported yet")
+    dev = resolve_device(device)
+    codes = np.asarray(codes)
+    if is_dna is None:
+        is_dna = codes.size > 0 and codes.max() < 4
+    c = codec.as_tensor(codes, dev)
+    sa_real = build_suffix_array(c)
+    return store_from_arrays(c, sa_real, is_dna=bool(is_dna),
+                             max_query_len=max_query_len,
+                             num_tablets=num_tablets, min_rows=min_rows,
+                             device=dev)

@@ -1,0 +1,120 @@
+"""Build harness for the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` for Hopper
+(``-gencode arch=compute_90a,code=sm_90a -O3``) into a shared library
+with a plain C interface, then loaded with ``ctypes``.  No PyTorch header
+is included, so a source builds in seconds; the wrappers pass
+``tensor.data_ptr()`` and ``torch.cuda.current_stream().cuda_stream``.
+
+Libraries land in ``build/repro_torch_kernels/`` at the root of the
+checkout (listed in ``.gitignore``), named by a hash of their source, so
+an edited source is rebuilt and a stale library is never loaded.  A
+failed build raises; nothing falls back to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
+    "repro_torch_kernels"
+SOURCES = ("pack2bit", "pattern_scan", "tier_scan")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+# launches per kernel; each wrapper adds one where it launches, so a run
+# can show its main path went through the kernels
+LAUNCHES = {"pack2bit": 0, "pattern_compare": 0, "bounded_search": 0,
+            "tier_scan": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin and PATH): the CUDA kernels "
+                           "cannot be built")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(names=SOURCES) -> dict[str, Path]:
+    """Compile every source in ``names`` whose library is missing, one
+    ``nvcc`` per source, all started together.  Returns name -> library
+    path.  Raises ``RuntimeError`` with the compiler output on failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    out = {}
+    for name in names:
+        lib = library_path(name)
+        out[name] = lib
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, lib)
+    errors = []
+    for name, (proc, tmp, lib) in procs.items():
+        log, _ = proc.communicate()
+        (BUILD_DIR / f"{name}.log").write_text(log)
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu "
+                          f"(exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, lib)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build((name,))[name]))
+            _libs[name] = lib
+        return lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launcher."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "
+                           f"{status}")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

@@ -1,0 +1,90 @@
+"""Public wrappers that pick a kernel or its plain version — the port of
+``repro.kernels.ops``.
+
+The choice follows the tensor, as ``repro.kernels.ops`` follows the
+backend: on a CUDA tensor a packed-DNA batch launches the hand-written
+kernel (and a failed build or launch raises); on a CPU tensor the plain
+PyTorch version runs.  Token (non-DNA) tables take the plain versions on
+every device, as the reference has no kernel for them either.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import codec
+from repro_torch.core import query as Q
+from repro_torch.kernels import ref
+from repro_torch.kernels import tier_scan as _tier
+from repro_torch.kernels.pack2bit import pack2bit_cuda
+from repro_torch.kernels.pattern_scan import pattern_compare_cuda
+
+
+def pack2bit(codes: torch.Tensor) -> torch.Tensor:
+    """(n,) codes {0..3} -> (n_words,) packed uint32 words."""
+    if codes.is_cuda:
+        return pack2bit_cuda(codes)
+    n = int(codes.shape[0])
+    n_words = codec.packed_length(n)
+    flat = torch.nn.functional.pad(codes.to(torch.int64),
+                                   (0, n_words * 16 - n))
+    return ref.pack2bit_ref(flat.reshape(n_words, 16).T)  # slot-major
+
+
+def pattern_compare(windows, patterns, plen, pos, *, n_real: int):
+    """(B, W) windows/patterns, (B,) plen/pos -> (lt, le, eq) bool (B,)."""
+    if windows.is_cuda:
+        out = pattern_compare_cuda(windows, patterns, plen, pos,
+                                   n_real=n_real)
+    else:
+        out = ref.pattern_compare_ref(windows.T, patterns.T, plen, pos,
+                                      n_real=n_real)
+    return tuple(o.to(torch.bool) for o in out)
+
+
+def tier_meta(stack) -> torch.Tensor:
+    """(T, 8) int32 rows ``[n_real, n_rows, offset, lo, hi, 0, 0, 0]``."""
+    meta = torch.zeros((stack.num_tiers, 8), dtype=torch.int32,
+                       device=stack.device)
+    for k, name in enumerate(("n_real", "n_rows", "offset", "lo", "hi")):
+        meta[:, k] = getattr(stack, name).to(torch.int32)
+    return meta
+
+
+def tier_windows(stack, n_words: int) -> torch.Tensor:
+    """(T, W, R) uint32: the packed window of every stacked row."""
+    return torch.stack([
+        codec.extract_window(stack.text_packed[t], stack.sa[t], n_words).T
+        for t in range(stack.num_tiers)])
+
+
+def tier_scan(stack, patterns, plen):
+    """The dense tier scan (packed-DNA tables only): the CUDA kernel on
+    a CUDA device, its plain version ``ref.tier_scan_ref`` elsewhere.
+    Returns (count, less, matches, first_g) int32 (T, B) — the
+    ``tier_scan.fused_tier_scan`` contract."""
+    W = patterns.shape[1]
+    args = (patterns.T, plen.to(torch.int32), tier_windows(stack, W),
+            stack.sa, tier_meta(stack))
+    if patterns.is_cuda:
+        return _tier.tier_scan_cuda(*args)
+    return ref.tier_scan_ref(*args)
+
+
+def _use_kernels(stack, patterns) -> bool:
+    return bool(patterns.is_cuda and stack.is_dna
+                and patterns.dtype == torch.uint32)
+
+
+def fused_single(store, stack, patterns, plen):
+    """THE single-device merged read: base search + all delta tiers +
+    the merge.  Returns (merged MatchResult, base MatchResult, (count,
+    less, matches, first_g)).  On CUDA with packed DNA the base runs the
+    ``bounded_search`` kernel (through ``query.query``) and the tiers
+    the ``tier_scan`` kernel; elsewhere ``tier_scan.fused_table_scan``."""
+    if _use_kernels(stack, patterns):
+        base = Q.query(store, patterns, plen)
+        tiers = tier_scan(stack, patterns, plen)
+    else:
+        base, tiers = _tier.fused_table_scan(store, stack, patterns, plen)
+    merged = _tier.merge_tier_results(base, tiers[0], tiers[3])
+    return merged, base, tiers

@@ -1,0 +1,104 @@
+"""CUDA masked packed compare and batched binary search — the port of
+``repro.kernels.pattern_scan``.
+
+Two entry points over one ``__device__`` compare in
+``csrc/pattern_scan.cu``:
+
+* :func:`pattern_compare_cuda` — the exact ``pattern_compare_pallas``
+  contract over explicit windows: ``(lt, le, eq)`` int8;
+* :func:`bounded_search_cuda` — every round of both bounds of
+  ``query._bounded_search`` in one launch, one thread per (query,
+  bound), each round gathering ``sa[mid]`` and funnel-shifting the window
+  out of the packed text.  ``query.query`` launches it on CUDA.
+
+Plain versions: ``ref.pattern_compare_ref`` and
+``query.search_bounds_plain``.  Layouts are the natural (B, W); the GPU
+kernels bound-check instead of padding to a block multiple.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import query as Q
+from repro_torch.kernels import _build
+
+_P = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_I = ctypes.c_int
+
+
+def _cuda_words(x: torch.Tensor, name: str) -> torch.Tensor:
+    if not x.is_cuda or x.dtype != torch.uint32:
+        raise ValueError(f"{name} must be a uint32 CUDA tensor, got "
+                         f"{x.dtype} on {x.device}")
+    return x.contiguous()
+
+
+def _cuda_i32(x: torch.Tensor, name: str) -> torch.Tensor:
+    if not x.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    return x.to(torch.int32).contiguous()
+
+
+def pattern_compare_cuda(windows: torch.Tensor, patterns: torch.Tensor,
+                         plen: torch.Tensor, pos: torch.Tensor, *,
+                         n_real: int):
+    """windows/patterns (B, W) uint32, plen/pos (B,) -> (lt, le, eq)
+    int8 (B,), on CUDA."""
+    win = _cuda_words(windows, "windows")
+    patt = _cuda_words(patterns, "patterns")
+    if win.shape != patt.shape or win.dim() != 2:
+        raise ValueError(f"windows {tuple(win.shape)} and patterns "
+                         f"{tuple(patt.shape)} must both be (B, W)")
+    B, W = win.shape
+    plen = _cuda_i32(plen, "plen")
+    pos = _cuda_i32(pos, "pos")
+    if plen.shape != (B,) or pos.shape != (B,):
+        raise ValueError("plen and pos must be (B,)")
+    outs = [torch.empty(B, dtype=torch.int8, device=win.device)
+            for _ in range(3)]
+    if B == 0:
+        return tuple(outs)
+    fn = _build.load("pattern_scan").pattern_compare_launch
+    fn.argtypes = [_P, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _P]
+    fn.restype = _I
+    _build.check(fn(_build.ptr(win), _build.ptr(patt), _build.ptr(plen),
+                    _build.ptr(pos), int(n_real), B, W,
+                    *(_build.ptr(o) for o in outs), _build.stream_of(win)),
+                 "pattern_compare")
+    _build.LAUNCHES["pattern_compare"] += 1
+    return tuple(outs)
+
+
+def bounded_search_cuda(sa: torch.Tensor, text_packed: torch.Tensor,
+                        n_real: int, patterns: torch.Tensor,
+                        plen: torch.Tensor, n_rows: int):
+    """(lb, ub) int32 (B,): the lower (pred = lt) and upper (pred =
+    lt | eq) bounds of every query over ``sa[:n_rows]``, exactly
+    ``query.search_bounds_plain``."""
+    patt = _cuda_words(patterns, "patterns")
+    text = _cuda_words(text_packed, "text_packed")
+    sa = _cuda_i32(sa, "sa")
+    plen = _cuda_i32(plen, "plen")
+    B, W = patt.shape
+    if plen.shape != (B,):
+        raise ValueError("plen must be (B,)")
+    if not 0 < n_rows <= sa.shape[0]:
+        raise ValueError(f"n_rows={n_rows} out of range for "
+                         f"{sa.shape[0]} SA rows")
+    lb = torch.empty(B, dtype=torch.int32, device=patt.device)
+    ub = torch.empty(B, dtype=torch.int32, device=patt.device)
+    if B == 0:
+        return lb, ub
+    fn = _build.load("pattern_scan").bounded_search_launch
+    fn.argtypes = [_P, _I, _P, _LL, _LL, _P, _P, _I, _I, _I, _P, _P, _P]
+    fn.restype = _I
+    _build.check(fn(_build.ptr(sa), int(n_rows), _build.ptr(text),
+                    int(text.shape[0]), int(n_real), _build.ptr(patt),
+                    _build.ptr(plen), B, W, Q.search_steps(n_rows),
+                    _build.ptr(lb), _build.ptr(ub), _build.stream_of(patt)),
+                 "bounded_search")
+    _build.LAUNCHES["bounded_search"] += 1
+    return lb, ub

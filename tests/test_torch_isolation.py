@@ -1,0 +1,83 @@
+"""The port stands alone: it imports neither jax nor any module of the
+JAX package, and its entry points run on the card unless told otherwise."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "src", "repro_torch")
+
+
+def _modules():
+    out = []
+    for root, _dirs, files in os.walk(PKG):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(root, f),
+                                      os.path.join(REPO, "src"))
+                mod = rel[:-3].replace(os.sep, ".")
+                out.append(mod[:-len(".__init__")]
+                           if mod.endswith(".__init__") else mod)
+    return sorted(out)
+
+
+def _imported_names(path):
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_every_module_imports_with_jax_blocked():
+    mods = _modules()
+    assert "repro_torch.api.table" in mods and len(mods) >= 15
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert not any(k == 'jax' or k.startswith('jax.') "
+            "for k, v in sys.modules.items() if v is not None)\n"
+            "print('ok')\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("path", sorted([
+    *[os.path.join(r, f) for r, _d, fs in os.walk(PKG) for f in fs
+      if f.endswith(".py")],
+    os.path.join(REPO, "chip_smoke.py"),
+]), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_repro_import(path):
+    for name in _imported_names(path):
+        root = name.split(".")[0]
+        assert root not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_entry_points_default_to_cuda():
+    from repro_torch.api import SuffixTable
+    from repro_torch.core.tablet import build_tablet_store
+    from repro_torch.device import resolve_device
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    for build in (lambda: SuffixTable.from_codes("ACGTACGT"),
+                  lambda: build_tablet_store(
+                      __import__("numpy").zeros(8, "uint8")),
+                  lambda: resolve_device("cuda")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    assert resolve_device("cpu").type == "cpu"

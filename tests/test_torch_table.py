@@ -1,0 +1,148 @@
+"""The slice as a whole: a JAX ``SuffixTable`` and a port ``SuffixTable``
+(``device="cpu"``) over the same text and the same random append / seal
+schedule agree on count, found, first_pos and locate(top_k)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.api import SuffixTable as JTable  # noqa: E402
+from repro_torch.api import SuffixTable  # noqa: E402
+from repro_torch.core import codec as C, query as Q  # noqa: E402
+
+CPU = "cpu"
+
+
+def _assert_scans_agree(jt, pt, pats, top_k):
+    a, b = jt.scan(pats, top_k=top_k), pt.scan(pats, top_k=top_k)
+    for f in ("count", "found", "first_pos") + (("positions",)
+                                                if top_k else ()):
+        np.testing.assert_array_equal(getattr(b, f), getattr(a, f), f)
+
+
+@pytest.mark.parametrize("seed,base_n,limit,mq", [
+    (0, 1200, 300, 32), (1, 700, 128, 16), (2, 2000, 500, 64),
+])
+def test_append_seal_schedule_matches_reference(seed, base_n, limit, mq):
+    rng = np.random.default_rng(seed)
+    base = C.random_dna(base_n, seed=seed)
+    kw = dict(is_dna=True, memtable_limit=limit, max_query_len=mq)
+    jt = JTable.from_codes(base, **kw)
+    pt = SuffixTable.from_codes(base, device=CPU, **kw)
+    pats = Q.random_patterns(90, 1, min(mq, 12), seed=seed) + [
+        "A", "ACGT", "T" * 5]
+    _assert_scans_agree(jt, pt, pats, top_k=0)
+    for step in range(5):
+        chunk = C.random_dna(int(rng.integers(40, limit)),
+                             seed=100 * seed + step)
+        jt.append(chunk)
+        pt.append(chunk)
+        if rng.random() < 0.3:
+            jt.minor_compact()
+            pt.minor_compact()
+        assert (len(pt.runs), pt.memtable.size) == \
+            (len(jt.runs), jt.memtable.size)
+        _assert_scans_agree(jt, pt, pats, top_k=int(rng.integers(1, 6)))
+        np.testing.assert_array_equal(pt.count(pats), jt.count(pats))
+        np.testing.assert_array_equal(pt.contains(pats), jt.contains(pats))
+        np.testing.assert_array_equal(pt.locate(pats[:10], top_k=3),
+                                      jt.locate(pats[:10], top_k=3))
+    for p in ("AC", "GATTA"):
+        np.testing.assert_array_equal(pt.locate_range(p, limit=None),
+                                      jt.locate_range(p, limit=None))
+        np.testing.assert_array_equal(pt.locate_range(p, after=50, limit=4),
+                                      jt.locate_range(p, after=50, limit=4))
+    assert len(pt) == len(jt)
+    assert pt.stats()["tiers"]["run_count"] == len(jt.runs)
+
+
+def test_token_table_matches_reference():
+    rng = np.random.default_rng(5)
+    codes = rng.integers(0, 9, size=600).astype(np.int32)
+    jt = JTable.from_codes(codes, max_query_len=8, memtable_limit=100)
+    pt = SuffixTable.from_codes(codes, max_query_len=8, memtable_limit=100,
+                                device=CPU)
+    assert not pt.is_dna
+    more = rng.integers(0, 9, size=130).astype(np.int32)
+    jt.append(more)
+    pt.append(more)
+    patt = np.zeros((40, 8), np.int32)
+    plen = rng.integers(1, 4, size=40).astype(np.int32)
+    for i in range(40):
+        s = int(rng.integers(0, 720))
+        seg = np.concatenate([codes, more])[s:s + plen[i]]
+        patt[i, :len(seg)] = seg
+    import jax.numpy as jnp
+    a = jt.scan_batch(jnp.asarray(patt), jnp.asarray(plen), top_k=3)
+    b = pt.scan_batch(torch.from_numpy(patt), torch.from_numpy(plen),
+                      top_k=3)
+    for f in ("count", "found", "first_pos", "positions"):
+        np.testing.assert_array_equal(getattr(b, f), getattr(a, f), f)
+
+
+def test_stats_and_unported_options():
+    pt = SuffixTable.from_codes("ACGTACGTTTGACA" * 20, device=CPU,
+                                memtable_limit=64)
+    pt.count(["ACG", "TTT"])
+    pt.append("GGGGCCCC")
+    pt.count(["GGGG"])
+    s = pt.stats()
+    assert s["device"] == "cpu" and s["build"]["mode"] == "in_memory"
+    assert s["tiers"]["memtable_rows"] == 8
+    assert s["planner"]["fused_batches"] == 1
+    assert s["planner"]["base_only_batches"] == 1
+    assert "dispatch" in s["latency"] and "dispatch_fused" in s["latency"]
+    for kw in ({"root": "x"}, {"wal": True}, {"fm_threshold": 10},
+               {"max_runs": 2}, {"mesh": object()}):
+        with pytest.raises(NotImplementedError):
+            SuffixTable.from_codes("ACGT" * 8, device=CPU, **kw)
+    for name in ("compact", "freeze", "flush"):
+        with pytest.raises(NotImplementedError):
+            getattr(pt, name)()
+    with pytest.raises(TypeError):
+        SuffixTable.from_codes("ACGT", device=CPU, no_such_option=1)
+
+
+def test_per_tier_match_positions_match_reference():
+    """The per-tier oracle of the fused read (``Run``/``Memtable``
+    ``match_positions``) agrees with the reference's, and its union with
+    the base slice is the merged enumeration."""
+    import jax.numpy as jnp
+    base = C.random_dna(900, seed=9)
+    kw = dict(is_dna=True, memtable_limit=200, max_query_len=16)
+    jt = JTable.from_codes(base, **kw)
+    pt = SuffixTable.from_codes(base, device=CPU, **kw)
+    for i in range(5):
+        chunk = C.random_dna(120, seed=900 + i)
+        jt.append(chunk)
+        pt.append(chunk)
+    assert len(pt.runs) == 2 and pt.memtable.size == 120
+    pats = Q.random_patterns(40, 1, 6, seed=9)
+    jp, jl = jt.planner.encode(pats)
+    pp, pl = pt.planner.encode(pats)
+    for jtier, ptier in zip(jt.runs + [jt.memtable], pt.runs + [pt.memtable]):
+        for g, w in zip(ptier.match_positions(pp, pl),
+                        jtier.match_positions(jnp.asarray(jp),
+                                              jnp.asarray(jl))):
+            np.testing.assert_array_equal(g, w)
+    text = np.concatenate([base] + [C.random_dna(120, seed=900 + i)
+                                    for i in range(5)])
+    for p in pats[:10]:
+        want = [i for i in range(len(text) - len(p) + 1)
+                if (text[i:i + len(p)] == C.encode_dna(p)).all()]
+        np.testing.assert_array_equal(pt.locate_range(p, limit=None), want)
+
+
+def test_planner_rebind_serves_the_new_store():
+    from repro_torch.core.planner import ScanPlanner
+    from repro_torch.core.tablet import build_tablet_store
+    a = build_tablet_store(C.encode_dna("ACGTACGT"), device=CPU)
+    b = build_tablet_store(C.encode_dna("TTTTTTTT"), device=CPU)
+    plan = ScanPlanner(a)
+    assert plan.scan(["TT"]).count[0] == 0
+    gen = plan._cache.generation
+    plan.rebind(b)
+    assert plan._cache.generation == gen + 1
+    assert plan.scan(["TT"]).count[0] == 7
+    np.testing.assert_array_equal(plan.locate(["TTTTTTT"], top_k=3),
+                                  [[1, 0, -1]])
