@@ -17,7 +17,20 @@ through the public entry points at chromosome scale:
                  ``memtable_limit``, so a run and a memtable are live;
 4. ``[merged]``  the workload again over base + run + memtable (the tier
                  scan kernel), then ``locate(top_k=5)``;
-5. ``[kernels]`` every kernel's launches on that run (must be > 0) and
+5. ``[linear]``  ``ops.tablet_scan`` of the first batch over every sorted
+                 row of that table's base (the tablet scan kernel), held
+                 against the plain binary search's bounds for every
+                 query of the batch;
+6. ``[freeze]``  a second table over the same bases, frozen onto an FM
+                 index by the ``fm_threshold`` policy;
+7. ``[frozen]``  the workload through the frozen table, base only (the
+                 fm_scan kernel); counts and first_pos must equal
+                 ``[count]``;
+8. ``[frozen-merged]`` the same three appends to the frozen table, the
+                 workload and ``locate(top_k=5)`` again (fm_scan plus the
+                 tier scan kernel); must equal ``[merged]`` and
+                 ``[locate]``;
+9. ``[kernels]`` every kernel's launches on that run (must be > 0) and
                  its result held against its plain PyTorch version on
                  inputs taken from that run; a sample of counts is
                  checked against a numpy brute-force scan of the text.
@@ -42,6 +55,7 @@ APPEND_LEN = 2**17
 N_QUERIES = 10_000
 BATCH = 512
 MAX_QUERY_LEN = 128
+SLICE_ROWS = 2**18          # rows the dense plain tablet scan is held on
 
 # Published H100 SXM peaks (NVIDIA data sheet), used for the bounds.
 MEM_BYTES_PER_S = 3.35e12
@@ -77,6 +91,34 @@ def max_abs_err(torch, got, want) -> int:
     return err
 
 
+def fm_traffic(torch, FM, fa, syms):
+    """What the backward search of the plan ``syms`` needs on index
+    ``fa``, counted on this run's data: per active step one rank at
+    ``lo`` and, while the run is not empty, one at ``hi`` (fm_scan.cu
+    takes one rank once ``lo == hi``); each rank reads one Occ entry and
+    the ceil(rem / 16) BWT words below its row.  Steps the search in
+    plain torch; returns (ranks, words, lo, hi)."""
+    B = int(syms.shape[1])
+    cc = fa.cc.to(torch.int64)
+    lo = torch.zeros(B, dtype=torch.int64, device=syms.device)
+    hi = torch.full_like(lo, fa.n + 1)
+    ranks = torch.zeros((), dtype=torch.int64, device=syms.device)
+    words = torch.zeros_like(ranks)
+    for t in range(int(syms.shape[0])):
+        s = syms[t].to(torch.int64)
+        act = s >= 0
+        two = act & (hi > lo)
+        ranks += act.sum() + two.sum()
+        words += ((lo % FM.SB + 15) // 16)[act].sum()
+        words += ((hi % FM.SB + 15) // 16)[two].sum()
+        sc = s.clamp(0, fa.vocab - 1)
+        lo2 = cc[sc] + FM.rank(fa, sc, lo)
+        hi2 = cc[sc] + FM.rank(fa, sc, hi)
+        lo = torch.where(act, lo2, lo)
+        hi = torch.where(act, hi2, hi)
+    return int(ranks), int(words), lo.to(torch.int32), hi.to(torch.int32)
+
+
 def brute_positions(np, text, pattern):
     """All start positions of ``pattern`` in ``text`` (uint8 codes), by a
     vectorised numpy scan that filters candidates one base at a time."""
@@ -87,8 +129,22 @@ def brute_positions(np, text, pattern):
     return cand
 
 
-def profile_merged(torch, table, patterns) -> None:
-    """Device busy share and top kernels over four merged batches (cache
+def sorted_windows(torch, codec, store, n_words: int, chunk: int = 2**22):
+    """(W, n_real) uint32: the packed window of every real sorted row of
+    ``store``, extracted ``chunk`` rows at a time (the one-shot
+    extraction's int64 temporaries would take ~10x the result)."""
+    pos = store.sa[store.pad_count:]
+    n = int(pos.shape[0])
+    wt = torch.empty((n_words, n), dtype=torch.uint32, device=pos.device)
+    for i in range(0, n, chunk):
+        win = codec.extract_window(store.text_packed, pos[i:i + chunk],
+                                   n_words)
+        wt.view(torch.int32)[:, i:i + chunk] = win.view(torch.int32).T
+    return wt
+
+
+def profile_batches(torch, table, patterns, tag: str) -> None:
+    """Device busy share and top kernels over four batches (cache
     cleared), by torch.profiler; outside the counted main path."""
     from torch.profiler import ProfilerActivity, profile
     table.clear_cache()
@@ -105,7 +161,7 @@ def profile_merged(torch, table, patterns) -> None:
         dev_us = sum(getattr(e, "self_device_time_total", 0.0)
                      for e in kernels)
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-        print(f"[profile:merged] batches=4 wall_ms={wall_us / 1e3:.3f} "
+        print(f"[profile:{tag}] batches=4 wall_ms={wall_us / 1e3:.3f} "
               f"device_busy_ms={dev_us / 1e3:.3f} "
               f"device_busy_share={dev_us / wall_us:.4f}", flush=True)
         for e in top:
@@ -113,7 +169,7 @@ def profile_merged(torch, table, patterns) -> None:
                   f"device_ms={e.self_device_time_total / 1e3:.3f}",
                   flush=True)
     except (RuntimeError, AttributeError) as exc:   # profiler unavailable
-        print(f"[profile:merged] not measured: {exc}", flush=True)
+        print(f"[profile:{tag}] not measured: {exc}", flush=True)
 
 
 def main() -> int:
@@ -127,7 +183,10 @@ def main() -> int:
     from repro_torch.core import codec
     from repro_torch.core import query as Q
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import fm_scan as FM
     from repro_torch.kernels import tier_scan as TS
+    from repro_torch.kernels.tablet_scan import BIG as NO_ROW
+    from repro_torch.kernels.tablet_scan import tablet_scan_cuda
     from repro_torch.kernels.pack2bit import pack2bit_cuda
     from repro_torch.kernels.pattern_scan import (bounded_search_cuda,
                                                   pattern_compare_cuda)
@@ -171,8 +230,9 @@ def main() -> int:
 
     patterns = Q.random_patterns(N_QUERIES, 1, 100, seed=0)
 
-    def serve(tag: str) -> np.ndarray:
-        lat, counts = [], []
+    def serve(tag: str, table) -> tuple[np.ndarray, np.ndarray]:
+        """The workload through ``table.scan``: (counts, first_pos)."""
+        lat, counts, firsts = [], [], []
         table.tracer.reset()
         t_all = time.perf_counter()
         for i in range(0, N_QUERIES, BATCH):
@@ -180,6 +240,7 @@ def main() -> int:
             out = table.scan(patterns[i:i + BATCH])
             lat.append((time.perf_counter() - t) * 1e3)
             counts.append(out.count)
+            firsts.append(out.first_pos)
         total = time.perf_counter() - t_all
         c = np.concatenate(counts)
         lat = np.asarray(lat)
@@ -194,20 +255,84 @@ def main() -> int:
         print(f"[spans:{tag}] " + " ".join(
             f"{k}:sum_ms={v['sum_ms']},p50_ms={v['p50_ms']}"
             for k, v in spans.items()), flush=True)
-        return c
+        return c, np.concatenate(firsts)
 
-    base_counts = serve("count")
+    def append_all(tag: str, table) -> None:
+        for chunk in appended:
+            table.append(chunk)
+        st = table.stats()["tiers"]
+        print(f"[{tag}] runs={st['run_count']} run_rows={st['run_rows']} "
+              f"memtable_rows={st['memtable_rows']}", flush=True)
+        check(st["run_count"] == 1 and st["memtable_rows"] == APPEND_LEN,
+              f"{tag}: one sealed run and one live memtable after three "
+              f"appends")
+
+    base_counts, base_first = serve("count", table)
     appended = [codec.random_dna(APPEND_LEN, seed=1 + i) for i in range(3)]
-    for chunk in appended:
-        table.append(chunk)
-    st = table.stats()["tiers"]
-    print(f"[append] runs={st['run_count']} run_rows={st['run_rows']} "
-          f"memtable_rows={st['memtable_rows']}", flush=True)
-    check(st["run_count"] == 1 and st["memtable_rows"] == APPEND_LEN,
-          "one sealed run and one live memtable after three appends")
-    merged_counts = serve("merged")
+    append_all("append", table)
+    merged_counts, merged_first = serve("merged", table)
     loc_pats = ["ACGT", "GATTACA", "TTTT"]
     located = table.locate(loc_pats, top_k=5)
+
+    # [linear] the tablet scan over every sorted row of the base, held
+    # against the plain binary search's bounds on every query: count =
+    # ub - lb, less = lb, first_row = lb where found (rows without the
+    # store's pad rows), 2**30 elsewhere
+    store = table.store
+    patt, plen = table.planner.encode(patterns[:BATCH])
+    B, W = patt.shape
+    rows_wt = sorted_windows(torch, codec, store, W)
+    pos_sorted = store.sa[store.pad_count:]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lin = ops.tablet_scan(patt, plen, rows_wt.T, pos_sorted, n_real=store.n_real)
+    torch.cuda.synchronize()
+    lin_s = time.perf_counter() - t0
+    plb, pub = Q.search_bounds_plain(store, patt, plen)
+    lb_real = plb - store.pad_count
+    lin_err = max_abs_err(torch, lin, (pub - plb, lb_real,
+                                       torch.where(pub > plb, lb_real,
+                                                   NO_ROW)))
+    res = Q.query(store, patt, plen)
+    ok = lin_err == 0 and torch.equal(lin[0], res.count)
+    print(f"[linear] queries={B} rows={rows_wt.shape[1]} words={W} "
+          f"seconds={lin_s:.4f} found={int((pub > plb).sum())} "
+          f"max_abs_err={lin_err} match={str(bool(ok)).lower()}",
+          flush=True)
+    check(bool(ok), "tablet_scan count / less / first_row equal the plain "
+          "binary search's bounds for every query")
+
+    # [freeze] a second table over the same bases, frozen by the policy
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frozen = SuffixTable.from_codes(base, is_dna=True,
+                                    max_query_len=MAX_QUERY_LEN,
+                                    memtable_limit=MEMTABLE_LIMIT,
+                                    fm_threshold=TEXT_LEN)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    build_s = frozen.stats()["build"]["elapsed_s"]
+    fm_bytes = frozen.stats()["tiers"]["resident_bytes"]["fm"]
+    sa_bytes = table.stats()["tiers"]["resident_bytes"]["base_sa"]
+    print(f"[freeze] n={TEXT_LEN} build_seconds={build_s:.4f} "
+          f"freeze_seconds={total_s - build_s:.4f} fm_bytes={fm_bytes} "
+          f"live_base_sa_bytes={sa_bytes} "
+          f"fm_over_sa={fm_bytes / sa_bytes:.4f} "
+          f"is_frozen={str(frozen.is_frozen).lower()}", flush=True)
+    check(frozen.is_frozen and frozen.stats()["tiers"]["frozen"],
+          "fm_threshold froze the second table")
+
+    fc, ff = serve("frozen", frozen)
+    check(np.array_equal(fc, base_counts) and np.array_equal(ff, base_first),
+          "frozen base-only counts and first_pos equal the live table's")
+    append_all("frozen-append", frozen)
+    fmc, fmf = serve("frozen-merged", frozen)
+    check(np.array_equal(fmc, merged_counts)
+          and np.array_equal(fmf, merged_first),
+          "frozen merged counts and first_pos equal the live table's")
+    floc = frozen.locate(loc_pats, top_k=5)
+    check(np.array_equal(floc, located),
+          "frozen locate(top_k=5) equals the live table's")
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     # ---------------- end of the main path ------------------------------
@@ -234,20 +359,17 @@ def main() -> int:
         check(np.array_equal(got, want), f"locate({p!r}) = smallest positions")
 
     # ---------------- each kernel against its plain version -------------
-    store = table.store
     dev = store.device
-    patt, plen = table.planner.encode(patterns[:BATCH])
-    B, W = patt.shape
     rows = []
 
     def row(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops,
-            library_ms=None):
+            library_ms=None, **extra):
         b, by = bound_ms(n_bytes, n_ops)
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b, "bound_by": by,
-                     "library_ms": library_ms})
+                     "library_ms": library_ms, **extra})
         check(launches[name] > 0, f"{name} launched on the main path")
         check(err == 0, f"{name} equals its plain version")
 
@@ -273,7 +395,6 @@ def main() -> int:
     steps = Q.search_steps(store.n_pad)
     lb, ub = bounded_search_cuda(store.sa, store.text_packed, store.n_real,
                                  patt, plen, store.n_pad)
-    plb, pub = Q.search_bounds_plain(store, patt, plen)
     row("bounded_search", "src/repro_torch/kernels/csrc/pattern_scan.cu",
         "src/repro/kernels/pattern_scan.py:55",
         max_abs_err(torch, [lb, ub], [plb, pub]),
@@ -322,7 +443,60 @@ def main() -> int:
           f"twin_ms={cuda_ms(torch, lambda: TS.fused_tier_scan(stack, patt, plen), 2):.4f}",
           flush=True)
 
-    profile_merged(torch, table, patterns)
+    # tablet_scan: the main path's launch over all 2**26 rows was held
+    # against the plain binary search's bounds in [linear]; the dense
+    # plain version runs on a contiguous slice of 2**18 rows (all 2**26
+    # would take minutes)
+    sl = slice(TEXT_LEN // 2, TEXT_LEN // 2 + SLICE_ROWS)
+    pt = patt.T.contiguous()
+    got = tablet_scan_cuda(pt, plen, rows_wt[:, sl], pos_sorted[sl],
+                           n_real=store.n_real)
+    t1 = time.perf_counter()
+    want = ref.tablet_scan_ref(pt, plen, rows_wt[:, sl], pos_sorted[sl],
+                               n_real=store.n_real)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    R = int(rows_wt.shape[1])
+    row("tablet_scan", "src/repro_torch/kernels/csrc/tablet_scan.cu",
+        "src/repro/kernels/tablet_scan.py:82",
+        max(lin_err, max_abs_err(torch, got, want)),
+        cuda_ms(torch, lambda: tablet_scan_cuda(
+            pt, plen, rows_wt, pos_sorted, n_real=store.n_real), 5),
+        plain_ms, W * R * 4 + R * 4 + W * B * 4 + B * 4 + 3 * B * 4, B * R,
+        plain_rows=SLICE_ROWS)
+    slice_ms = cuda_ms(torch, lambda: tablet_scan_cuda(
+        pt, plen, rows_wt[:, sl], pos_sorted[sl], n_real=store.n_real), 20)
+    print(f"[tablet] slice_rows={SLICE_ROWS} kernel_slice_ms={slice_ms:.4f} "
+          f"plain_slice_ms={plain_ms:.4f}", flush=True)
+
+    # fm_scan on the frozen table's index, first batch of the workload
+    fa = frozen.fm.arrays
+    fm_steps = W * 16
+    syms = FM.syms_from_packed(patt, plen, fm_steps)
+    meta = FM.fm_meta(fa)
+    got = FM.fm_scan_cuda(syms, fa.bwt, fa.occ, meta)
+    want = FM.search_syms(fa, syms)
+    # bytes: 4 per rank (Occ entry) + 4 per BWT word read, the plan, the
+    # outputs and meta; operations: ~9 per word (xor, not, and, shift,
+    # and, mask, popcount, add)
+    ranks, words, tlo, thi = fm_traffic(torch, FM, fa, syms)
+    check(torch.equal(tlo, got[0]) and torch.equal(thi, got[1]),
+          "the fm_scan traffic count followed the kernel's search")
+    row("fm_scan", "src/repro_torch/kernels/csrc/fm_scan.cu",
+        "src/repro/kernels/fm_scan.py:260", max_abs_err(torch, got, want),
+        cuda_ms(torch, lambda: FM.fm_scan_cuda(syms, fa.bwt, fa.occ, meta),
+                50),
+        cuda_ms(torch, lambda: FM.search_syms(fa, syms), 1),
+        4 * ranks + 4 * words + fm_steps * B * 4 + 2 * B * 4 + 32,
+        9 * words)
+    lo, hi = got
+    print(f"[fm] steps={fm_steps} active_steps={int(plen.sum())} "
+          f"ranks={ranks} words={words} found={int((hi > lo).sum())} "
+          f"bwt_words={fa.bwt.shape[0]} occ_rows={fa.occ.shape[0]}",
+          flush=True)
+
+    profile_batches(torch, table, patterns, "merged")
+    profile_batches(torch, frozen, patterns, "frozen-merged")
 
     print("[kernels] " + " ".join(
         f"{r['name']}:launches={r['launches']},match="

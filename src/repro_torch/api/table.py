@@ -9,10 +9,14 @@ and write it with :meth:`append` into the memtable and
 merged dispatch over base + runs + memtable (``ScanPlanner.
 scan_tiers``), each tier owning the occurrences that END in its region.
 
+:meth:`freeze` (or the ``fm_threshold`` policy) moves the base onto a
+compressed FM index (``api.fm.FMIndex``) and drops the live suffix array
+and the device text; base reads then run the FM backward search, and
+text positions come from LF walks on the device.
+
 Not ported yet, and raising ``NotImplementedError`` when asked for:
 persistence (``root``, ``create``/``open``/``flush``), the commit log
-(``wal``), the frozen tier (``fm_threshold``, ``freeze``), major
-compaction (``compact``, ``max_runs``) and meshes.
+(``wal``), major compaction (``compact``, ``max_runs``) and meshes.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.api.fm import MAX_VOCAB, FMIndex
 from repro_torch.api.memtable import Memtable
 from repro_torch.api.runs import Run, TierSet, logical_tail
 from repro_torch.core import codec
@@ -34,8 +39,8 @@ from repro_torch.serving.trace import Tracer
 
 # keyword arguments of repro's SuffixTable that this slice does not port
 _UNPORTED = ("root", "version", "keep_n", "wal", "group_commit_ms",
-             "fm_threshold", "max_runs", "distributed_build",
-             "capacity_factor", "routed_min_batch", "mesh")
+             "max_runs", "distributed_build", "capacity_factor",
+             "routed_min_batch", "mesh")
 
 
 def _check_unported(kw: dict) -> None:
@@ -71,6 +76,7 @@ class SuffixTable:
                  max_query_len: int = 128, name: Optional[str] = None,
                  cache_size: int = 4096,
                  memtable_limit: Optional[int] = None,
+                 fm_threshold: Optional[int] = None,
                  device: DeviceLike = None,
                  _store: Optional[TabletStore] = None,
                  _planner: Optional[ScanPlanner] = None, **unported):
@@ -80,6 +86,8 @@ class SuffixTable:
         self.max_query_len = int(max_query_len)
         self.cache_size = int(cache_size)
         self.memtable_limit = memtable_limit
+        self.fm_threshold = fm_threshold
+        self.fm: Optional[FMIndex] = None
         self.runs: list[Run] = []
         self._codes = np.asarray(codes)
         self.tracer = Tracer()
@@ -127,6 +135,7 @@ class SuffixTable:
         table._build = {"mode": "in_memory", "n_bases": n,
                         "elapsed_s": elapsed,
                         "bases_per_s": n / elapsed if elapsed > 0 else 0.0}
+        table._maybe_freeze()
         return table
 
     @classmethod
@@ -154,9 +163,50 @@ class SuffixTable:
     def flush(self) -> None:
         raise NotImplementedError("flush is not ported to repro_torch yet")
 
-    def freeze(self, **kw):
-        raise NotImplementedError("the frozen FM tier is not ported to "
-                                  "repro_torch yet")
+    def freeze(self, *, sample_rate: int = 32) -> "SuffixTable":
+        """Move the base tier onto a frozen FM index: the BWT is derived
+        from the current base SA (host numpy), 2-bit-packed with blocked
+        Occ checkpoints and a sampled SA, and the live suffix array and
+        device text are dropped (the index takes ~0.875 bytes per base
+        against the device SA's 4).
+        Base reads then run the FM backward search; appends keep landing
+        in the memtable and runs and merge through the fused tier path.
+        Idempotent."""
+        if self.fm is not None:
+            return self
+        sa_real = self.store.sa[self.store.pad_count:].cpu().numpy()
+        fm = FMIndex.build(self._codes, sa_real, is_dna=self.is_dna,
+                           sample_rate=sample_rate, device=self.device)
+        self._attach_frozen(fm)
+        return self
+
+    def _maybe_freeze(self) -> None:
+        """The ``fm_threshold`` policy: freeze once the base reaches the
+        threshold (a no-op for token tables above the frozen vocab
+        cap)."""
+        if (self.fm is None and self.fm_threshold is not None
+                and self.n_base >= int(self.fm_threshold)):
+            if (not self.is_dna and self._codes.size
+                    and int(self._codes.max()) >= MAX_VOCAB):
+                return
+            self.freeze()
+
+    def _attach_frozen(self, fm: FMIndex) -> None:
+        """Swap the base onto ``fm``.  The store becomes metadata only
+        (no text, an empty SA on the table's device, so ``store.device``
+        still resolves); the host codes stay for the memtable's overlap
+        window."""
+        if fm.n != self.n_base or fm.is_dna != self.is_dna:
+            raise ValueError(
+                f"FM-index (n={fm.n}, is_dna={fm.is_dna}) does not match "
+                f"the table (n={self.n_base}, is_dna={self.is_dna})")
+        self.fm = fm
+        self.store = TabletStore(
+            text_packed=None, text_codes=None,
+            sa=torch.zeros((0,), dtype=torch.int32, device=self.device),
+            n_real=self.n_base, n_pad=self.n_base, is_dna=self.is_dna,
+            max_query_len=self.max_query_len)
+        self.planner.rebind(self.store, fm=fm)
 
     def compact(self) -> int:
         raise NotImplementedError("major compaction is not ported to "
@@ -175,6 +225,11 @@ class SuffixTable:
         """Symbols covered by base + sealed runs (the memtable's start)."""
         return self.n_base + sum(r.length for r in self.runs)
 
+    @property
+    def is_frozen(self) -> bool:
+        """True when the base tier serves from the FM index."""
+        return self.fm is not None
+
     def stats(self) -> dict:
         """Observability snapshot: identity, ``tiers`` (symbols per LSM
         level), the table's string ``cache``, ``build`` (how the base was
@@ -190,6 +245,8 @@ class SuffixTable:
                 "run_count": len(self.runs),
                 "run_rows": self.n_logical - self.n_base,
                 "memtable_rows": self.memtable.size,
+                "frozen": self.fm is not None,
+                "resident_bytes": self._resident_bytes(),
             },
             "cache": {
                 "entries": len(self._cache),
@@ -200,6 +257,32 @@ class SuffixTable:
             "build": self._build,
             "planner": self.planner.stats.as_dict(),
             "latency": self.tracer.snapshot(),
+        }
+
+    def _resident_bytes(self) -> dict:
+        """Per-tier index bytes (the reference's schema): ``base_sa`` the
+        device SA plus the planner's host copy, ``text_device`` the
+        packed and padded device text (both 0 once frozen, where ``fm``
+        holds the index), ``text_host`` the raw codes every table
+        keeps."""
+        base_sa = int(self.store.sa.numel()) * 4
+        if self.planner._sa_host is not None:
+            base_sa += int(self.planner._sa_host.nbytes)
+        text_dev = sum(int(t.numel()) * 4 for t in (self.store.text_packed,
+                                                    self.store.text_codes)
+                       if t is not None)
+        run_bytes = 0
+        for r in self.runs:
+            run_bytes += int(r.tail.nbytes) + int(r.codes.nbytes)
+            if r._sa_host is not None:
+                run_bytes += int(r._sa_host.nbytes)
+        return {
+            "base_sa": base_sa,
+            "fm": self.fm.resident_bytes() if self.fm is not None else 0,
+            "text_device": text_dev,
+            "runs": run_bytes,
+            "memtable": int(self.memtable.size),
+            "text_host": int(self._codes.nbytes),
         }
 
     def _invalidate_caches(self) -> None:
@@ -235,8 +318,11 @@ class SuffixTable:
 
     def _scan_tiers(self, patt, plen):
         """One fused merged dispatch: (merged MatchResult, TierScanResult
-        | None, delta positions per query | None, base-only count)."""
-        merged, tres = self.planner.scan_tiers(self._tierset(), patt, plen)
+        | None, delta positions per query | None, base-only count).  The
+        merged ``first_pos`` is not filled on a frozen table: every
+        caller derives text-order positions from the base rows itself."""
+        merged, tres = self.planner.scan_tiers(self._tierset(), patt, plen,
+                                               first_pos=False)
         count = merged.count.cpu().numpy().astype(np.int64)
         if tres is None:
             return merged, None, None, count
@@ -253,14 +339,20 @@ class SuffixTable:
         per matching query and one host copy for the batch.  (The
         reference gathers every slice into one flat array first; at
         chromosome scale a short pattern's slice holds millions of rows,
-        and that gather dominated a batch.)"""
+        and that gather dominated a batch.)  A frozen table has no SA:
+        its rows are LF-walked and min-reduced on the index's device."""
         B = int(base_count.shape[0])
         out = np.full(B, -1, np.int64)
         nz = np.flatnonzero((base_count > 0) & (base_rank >= 0))
         if nz.size == 0:
             return out
-        sa = self.store.sa
         starts = self.store.pad_count + base_rank[nz].astype(np.int64)
+        if self.fm is not None:
+            # real-SA row r is SA$ row r + 1
+            out[nz] = self.fm.segment_min_positions(
+                starts + 1, base_count[nz]).cpu().numpy()
+            return out
+        sa = self.store.sa
         ends = starts + base_count[nz].astype(np.int64)
         mins = torch.stack([sa[s:e].min()
                             for s, e in zip(starts.tolist(), ends.tolist())])
@@ -281,6 +373,9 @@ class SuffixTable:
         if cb <= 0 or base_rank[i] < 0:
             return np.zeros((0,), np.int64)
         lb = self.store.pad_count + int(base_rank[i])
+        if self.fm is not None:
+            rows = torch.arange(lb + 1, lb + 1 + cb, dtype=torch.int64)
+            return self.fm.ranks_to_positions(rows).cpu().numpy()
         return self.store.sa[lb:lb + cb].cpu().numpy().astype(np.int64)
 
     def scan_batch(self, patt, plen, top_k: int = 0) -> ScanOutcome:

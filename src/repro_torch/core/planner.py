@@ -1,15 +1,20 @@
 """Scan planner — the single entry point for pattern lookups; the
-``MODE_SINGLE`` part of ``repro.core.planner``.
+single-device part of ``repro.core.planner`` (``MODE_SINGLE`` and
+``MODE_FM``).
 
-Single device only: every batch runs ``query.query`` (the
+A live table runs every batch through ``query.query`` (the
 ``bounded_search`` kernel on CUDA for packed DNA), and merged reads over
-delta tiers run ``kernels.ops.fused_single``.  Broadcast, routed and FM
-modes need a mesh or the frozen tier, which are not ported yet: asking
+delta tiers through ``kernels.ops.fused_single``.  A frozen table (an
+``api.fm.FMIndex`` bound with ``fm=``) plans ``MODE_FM``: its base reads
+run ``kernels.ops.fm_search`` (the ``fm_scan`` kernel on CUDA), and
+merged reads add ``kernels.ops.fused_tiers`` over the delta tiers.
+Broadcast and routed modes need a mesh, which is not ported yet: asking
 for them raises ``NotImplementedError``.
 
 On top of the exact scan the planner adds match enumeration
 (:meth:`ScanPlanner.locate`, positions in suffix-rank order from the SA
-slice ``[lb, ub)``) and an LRU result cache for the string-level API.
+slice ``[lb, ub)``, or LF walks on a frozen table) and an LRU result
+cache for the string-level API.
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ from repro_torch.core import codec
 from repro_torch.core import query as Q
 from repro_torch.core.query import MatchResult
 from repro_torch.core.tablet import TabletStore
+from repro_torch.kernels import ops
+from repro_torch.kernels.tier_scan import merge_tier_results
 from repro_torch.serving.trace import Tracer
 
 MODE_SINGLE = "single"
@@ -52,7 +59,8 @@ class PlannerStats:
     cache_hits: int = 0
     cache_misses: int = 0
     mode_counts: dict = dataclasses.field(
-        default_factory=lambda: {MODE_SINGLE: 0})
+        default_factory=lambda: {MODE_SINGLE: 0, MODE_BROADCAST: 0,
+                                 MODE_ROUTED: 0, MODE_FM: 0})
     fused_batches: int = 0
     base_only_batches: int = 0
     tier_reads: dict = dataclasses.field(
@@ -160,20 +168,20 @@ class ScanOutcome:
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               f"(single-device MODE_SINGLE only)")
+                               f"(single-device MODE_SINGLE / MODE_FM only)")
 
 
 class ScanPlanner:
     """Plans, executes and caches pattern scans over a single-device
-    store.  ``mesh`` and ``fm`` raise ``NotImplementedError``."""
+    store, or over a frozen table's FM index when ``fm`` is bound.
+    ``mesh`` raises ``NotImplementedError``."""
 
     def __init__(self, store: TabletStore, *, cache_size: int = 4096,
                  max_pattern_len: Optional[int] = None,
                  tracer: Optional[Tracer] = None, mesh=None, fm=None):
         if mesh is not None:
             raise _not_ported("a mesh (broadcast/routed scans)")
-        if fm is not None:
-            raise _not_ported("the frozen FM tier")
+        self.fm = fm
         self.store = store
         self.cache_size = int(cache_size)
         self.max_pattern_len = int(max_pattern_len or store.max_query_len)
@@ -184,9 +192,10 @@ class ScanPlanner:
 
     def rebind(self, store: TabletStore, *, fm=None) -> None:
         """Swap the underlying store in place; the host SA copy is
-        dropped and the result cache generation-bumped."""
-        if fm is not None:
-            raise _not_ported("the frozen FM tier")
+        dropped and the result cache generation-bumped.  ``fm`` moves the
+        planner onto (or off) the frozen tier: base reads then go
+        through the FM index instead of ``store.sa``."""
+        self.fm = fm
         self.store = store
         self.max_pattern_len = int(store.max_query_len)
         self._sa_host = None
@@ -196,14 +205,23 @@ class ScanPlanner:
         return self._cache.bump()
 
     def plan(self, batch: int) -> ScanPlan:
+        if self.fm is not None:
+            return ScanPlan(MODE_FM, "frozen table: FM backward search",
+                            batch)
         return ScanPlan(MODE_SINGLE, "no mesh / single device", batch)
 
     # -- encoded-batch API --------------------------------------------------
-    def _check_mode(self, mode: Optional[str]) -> str:
-        chosen = mode or MODE_SINGLE
-        if chosen != MODE_SINGLE:
-            if chosen in (MODE_BROADCAST, MODE_ROUTED, MODE_FM):
-                raise _not_ported(f"scan mode {chosen!r}")
+    def _check_mode(self, mode: Optional[str], B: int) -> str:
+        chosen = mode or self.plan(B).mode
+        if chosen == MODE_FM and self.fm is None:
+            raise ValueError("mode 'fm' requires a frozen table (planner "
+                             "has no FM-index bound)")
+        if chosen == MODE_SINGLE and self.fm is not None:
+            raise ValueError("mode 'single' needs the live suffix array, "
+                             "which a frozen table has dropped")
+        if chosen in (MODE_BROADCAST, MODE_ROUTED):
+            raise _not_ported(f"scan mode {chosen!r}")
+        if chosen not in (MODE_SINGLE, MODE_FM):
             raise ValueError(f"unknown scan mode {chosen!r}")
         return chosen
 
@@ -222,12 +240,16 @@ class ScanPlanner:
         self.stats.queries += B
         self.stats.mode_counts[chosen] += 1
 
-    def scan_encoded(self, patt, plen, *,
-                     mode: Optional[str] = None) -> MatchResult:
+    def scan_encoded(self, patt, plen, *, mode: Optional[str] = None,
+                     first_pos: bool = True) -> MatchResult:
         """Exact scan of an encoded batch (packed uint32 DNA or int32
-        codes, on the store's device)."""
+        codes, on the store's device).  ``first_pos=False`` lets a frozen
+        read skip the LF walk of every lower-bound row and report
+        ``first_pos`` -1, for callers that derive text-order positions
+        themselves (a live read's ``first_pos`` is one gather and is
+        always filled)."""
         B = int(patt.shape[0])
-        chosen = self._check_mode(mode)
+        chosen = self._check_mode(mode, B)
         self._check_plen(plen, B)
         self._account(chosen, B)
         self.stats.tier_reads["base"] += 1
@@ -236,27 +258,41 @@ class ScanPlanner:
             return MatchResult(found=z.to(torch.bool), count=z,
                                first_rank=z, first_pos=z)
         with self.tracer.span("dispatch_" + chosen):
+            if chosen == MODE_FM:
+                return ops.fm_search(self.fm.arrays, patt, plen,
+                                     first_pos=first_pos)
             return Q.query(self.store, patt, plen)
 
-    def scan_tiers(self, tierset, patt, plen, *, mode: Optional[str] = None
+    def scan_tiers(self, tierset, patt, plen, *, mode: Optional[str] = None,
+                   first_pos: bool = True
                    ) -> tuple[MatchResult, Optional[TierScanResult]]:
         """Merged read over base + every delta tier of ``tierset`` (an
         ``api.runs.TierSet`` or None): the MERGED MatchResult plus the
-        per-tier :class:`TierScanResult` (None on the base-only path)."""
+        per-tier :class:`TierScanResult` (None on the base-only path).
+        ``first_pos`` as in :meth:`scan_encoded`."""
         B = int(patt.shape[0])
         if tierset is None or tierset.num_tiers == 0 or B == 0:
-            res = self.scan_encoded(patt, plen, mode=mode)
+            res = self.scan_encoded(patt, plen, mode=mode,
+                                    first_pos=first_pos)
             self.stats.base_only_batches += 1
             return res, None
-        chosen = self._check_mode(mode)
+        chosen = self._check_mode(mode, B)
         self._check_plen(plen, B)
         n_runs = sum(1 for k in tierset.kinds if k == "run")
-        from repro_torch.kernels import ops
-        self._account(chosen, B)
-        self.stats.tier_reads["base"] += 1
-        with self.tracer.span("dispatch_fused"):
-            merged, _base, tiers = ops.fused_single(
-                self.store, tierset.stack, patt, plen)
+        if chosen == MODE_SINGLE:
+            self._account(chosen, B)
+            self.stats.tier_reads["base"] += 1
+            with self.tracer.span("dispatch_fused"):
+                merged, _base, tiers = ops.fused_single(
+                    self.store, tierset.stack, patt, plen)
+        else:
+            # frozen base: the FM read (scan_encoded does its accounting),
+            # then every delta tier in one scan, then the merge
+            base = self.scan_encoded(patt, plen, mode=chosen,
+                                     first_pos=first_pos)
+            with self.tracer.span("dispatch_fused"):
+                tiers = ops.fused_tiers(tierset.stack, patt, plen)
+                merged = merge_tier_results(base, tiers[0], tiers[3])
         self.stats.fused_batches += 1
         self.stats.tier_reads["runs"] += n_runs
         self.stats.tier_reads["memtable"] += tierset.num_tiers - n_runs
@@ -281,6 +317,16 @@ class ScanPlanner:
         count = res.count.cpu().numpy()
         found = res.found.cpu().numpy()
         first_rank = res.first_rank.cpu().numpy()
+        if self.fm is not None:
+            # frozen tier: no SA to slice — LF-walk the SA$ rows
+            # [lo, lo + min(count, top_k)) back to text positions
+            k = np.arange(max(int(top_k), 1))[None, :]
+            rows = first_rank[:, None] + 1 + k           # SA$ row = rank + 1
+            valid = ((found & (first_rank >= 0))[:, None]
+                     & (k < count[:, None]))
+            rows = np.clip(rows, 1, self.fm.n)
+            pos = self.fm.ranks_to_positions(rows).cpu().numpy()
+            return np.where(valid, pos, -1)[:, :top_k].astype(np.int64)
         sa = self._sa()
         lb = first_rank + self.store.pad_count
         k = np.arange(max(int(top_k), 1))[None, :]

@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
-SOURCES = ("pack2bit", "pattern_scan", "tier_scan")
+SOURCES = ("pack2bit", "pattern_scan", "tier_scan", "tablet_scan", "fm_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -35,7 +35,7 @@ _lock = threading.Lock()
 # launches per kernel; each wrapper adds one where it launches, so a run
 # can show its main path went through the kernels
 LAUNCHES = {"pack2bit": 0, "pattern_compare": 0, "bounded_search": 0,
-            "tier_scan": 0}
+            "tier_scan": 0, "tablet_scan": 0, "fm_scan": 0}
 
 
 def reset_launches() -> None:

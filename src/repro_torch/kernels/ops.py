@@ -13,10 +13,12 @@ import torch
 
 from repro_torch.core import codec
 from repro_torch.core import query as Q
+from repro_torch.kernels import fm_scan as _fm
 from repro_torch.kernels import ref
 from repro_torch.kernels import tier_scan as _tier
 from repro_torch.kernels.pack2bit import pack2bit_cuda
 from repro_torch.kernels.pattern_scan import pattern_compare_cuda
+from repro_torch.kernels.tablet_scan import tablet_scan_cuda
 
 
 def pack2bit(codes: torch.Tensor) -> torch.Tensor:
@@ -39,6 +41,17 @@ def pattern_compare(windows, patterns, plen, pos, *, n_real: int):
         out = ref.pattern_compare_ref(windows.T, patterns.T, plen, pos,
                                       n_real=n_real)
     return tuple(o.to(torch.bool) for o in out)
+
+
+def tablet_scan(patterns, plen, windows, pos, *, n_real: int):
+    """Linear scan of BR sorted-row windows by BQ patterns: patterns
+    (BQ, W), plen (BQ,), windows (BR, W), pos (BR,).  Returns (count,
+    less, first_row) int32 (BQ,); first_row is 2**30 when no row
+    matches."""
+    args = (patterns.T, plen.to(torch.int32), windows.T, pos)
+    if patterns.is_cuda:
+        return tablet_scan_cuda(*args, n_real=n_real)
+    return ref.tablet_scan_ref(*args, n_real=n_real)
 
 
 def tier_meta(stack) -> torch.Tensor:
@@ -75,6 +88,16 @@ def _use_kernels(stack, patterns) -> bool:
                 and patterns.dtype == torch.uint32)
 
 
+def fused_tiers(stack, patterns, plen):
+    """Every delta tier in one scan: (count, less, matches, first_g),
+    each (T, B) int32.  Frozen tables merge their FM base read with
+    this.  The ``tier_scan`` kernel on CUDA for packed DNA, the plain
+    binary search elsewhere."""
+    if _use_kernels(stack, patterns):
+        return tier_scan(stack, patterns, plen)
+    return _tier.fused_tier_scan(stack, patterns, plen)
+
+
 def fused_single(store, stack, patterns, plen):
     """THE single-device merged read: base search + all delta tiers +
     the merge.  Returns (merged MatchResult, base MatchResult, (count,
@@ -88,3 +111,27 @@ def fused_single(store, stack, patterns, plen):
         base, tiers = _tier.fused_table_scan(store, stack, patterns, plen)
     merged = _tier.merge_tier_results(base, tiers[0], tiers[3])
     return merged, base, tiers
+
+
+def fm_search(arrays, patterns, plen, *, first_pos: bool = True):
+    """Frozen-tier base read: FM backward search + one LF walk for
+    ``first_pos``, with ``query``'s MatchResult contract.  A packed-DNA
+    batch on CUDA runs the ``fm_scan`` kernel; everything else (the
+    CPU, token tables on every device) runs ``fm_scan.search_syms``.
+    ``first_rank`` is -1 where nothing matched (``fm_scan.
+    finish_match``); ``first_pos=False`` skips the LF walk and reports
+    ``first_pos`` -1."""
+    packed = arrays.is_dna and patterns.dtype == torch.uint32
+    if packed:
+        syms = _fm.syms_from_packed(patterns, plen, patterns.shape[1] * 16)
+    else:
+        syms = _fm.syms_from_codes(patterns, plen, patterns.shape[1])
+    if packed and patterns.is_cuda:
+        lo, hi = _fm.fm_scan_cuda(syms, arrays.bwt, arrays.occ,
+                                  _fm.fm_meta(arrays))
+    else:
+        lo, hi = _fm.search_syms(arrays, syms)
+    found, count, first_rank, pos = _fm.finish_match(arrays, lo, hi,
+                                                     walk=first_pos)
+    return Q.MatchResult(found=found, count=count, first_rank=first_rank,
+                         first_pos=pos)

@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the three ported kernels, with the contracts
-of ``repro.kernels.ref`` (``pack2bit_ref``, ``pattern_compare_ref``,
-``tier_scan_ref``).  They run on any device: the CPU tests hold them
-against the Pallas kernels, and the chip check holds each CUDA kernel
-against them on the card."""
+"""Plain PyTorch versions of the scan kernels, with the contracts of
+``repro.kernels.ref`` (``pack2bit_ref``, ``pattern_compare_ref``,
+``tier_scan_ref``, ``tablet_scan_ref``); the backward search's is
+``fm_scan.search_syms``.  They run on any device: the CPU tests hold
+them against the Pallas kernels, and the chip check holds each CUDA
+kernel against them on the card."""
 from __future__ import annotations
 
 import torch
@@ -75,3 +76,35 @@ def tier_scan_ref(patterns_t, plen, windows_t, sa, meta, *,
         outs.append((cnt, less, mat, first))
     return tuple(torch.stack([o[i] for o in outs]).to(torch.int32)
                  for i in range(4))
+
+
+def tablet_scan_ref(patterns_t, plen, windows_t, pos, *, n_real: int,
+                    row_chunk: int = 4096):
+    """Dense (BQ, BR) compare then reductions: patterns_t (W, BQ) and
+    windows_t (W, BR) uint32, plen (BQ,), pos (BR,); returns (count,
+    less, first_row) int32 (BQ,), first_row ``2**30`` when no row
+    matches.  Rows are taken ``row_chunk`` at a time, as in
+    :func:`tier_scan_ref`."""
+    W, BQ = patterns_t.shape
+    BR = windows_t.shape[1]
+    dev = patterns_t.device
+    plen64 = plen.to(torch.int64)
+    mask = Q.word_masks(plen, W)[:, None, :]                # (BQ, 1, W)
+    b = words_i64(patterns_t.T)[:, None, :] & mask          # (BQ, 1, W)
+    cnt = torch.zeros(BQ, dtype=torch.int64, device=dev)
+    less = torch.zeros_like(cnt)
+    first = torch.full((BQ,), BIG, dtype=torch.int64, device=dev)
+    for r0 in range(0, BR, row_chunk):
+        r1 = min(BR, r0 + row_chunk)
+        a = words_i64(windows_t[:, r0:r1].T)[None] & mask
+        lt, eq_all = Q.prefix_compare(a, b)                 # (BQ, rc)
+        truncated = pos[r0:r1].to(torch.int64)[None, :] + plen64[:, None] \
+            > n_real
+        eq = eq_all & ~truncated
+        lt = lt | (eq_all & truncated)
+        rows = torch.arange(r0, r1, device=dev)[None, :]
+        cnt += eq.sum(dim=1)
+        less += lt.sum(dim=1)
+        first = torch.minimum(
+            first, torch.where(eq, rows, BIG).min(dim=1).values)
+    return cnt.to(torch.int32), less.to(torch.int32), first.to(torch.int32)

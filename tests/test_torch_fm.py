@@ -1,0 +1,383 @@
+"""The frozen FM tier of the port against ``repro``'s, on the CPU.
+
+Exact equality everywhere (every output is an integer): the index
+arrays ``FMIndex.build`` makes; on one index carried across with
+``FMIndex.from_numpy``, the backward search (against the JAX oracle and
+the Pallas ``fm_scan_pallas`` kernel in interpret mode), rank, the LF
+walks and ``ops.fm_search``; frozen tables against frozen ``repro``
+tables base-only, after ``append`` and after ``minor_compact``; the
+``fm_threshold`` policy.  Sizes include ``rows = n + 1`` multiples of 64
+(n = 63, 127), where rank reaches one block past the BWT."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.api import SuffixTable as JTable  # noqa: E402
+from repro.api.fm import FMIndex as JFM  # noqa: E402
+from repro.api.fm import sa_is_fully_sorted as j_sorted  # noqa: E402
+from repro.core import query as JQ  # noqa: E402
+from repro.kernels import fm_scan as JFS, ops as JOPS  # noqa: E402
+from repro_torch.api import FMIndex, SuffixTable  # noqa: E402
+from repro_torch.api.fm import MAX_VOCAB, sa_is_fully_sorted  # noqa: E402
+from repro_torch.core import codec as C, query as Q  # noqa: E402
+from repro_torch.core.planner import MODE_FM, MODE_SINGLE  # noqa: E402
+from repro_torch.kernels import fm_scan as FS, ops  # noqa: E402
+
+CPU = "cpu"
+DNA_N = [63, 127, 130, 2048]
+PATS = ["A", "ACGT", "GATTACA", "TTTT", "CCGG", "A" * 24, "ACGT" * 6]
+FIELDS = ("found", "count", "first_rank", "first_pos")
+
+
+def _assert_same_index(mine: FMIndex, want: JFM) -> None:
+    got = mine.state_dict()
+    for k, v in want.state_dict().items():
+        v = np.asarray(v)
+        assert got[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(got[k], v, k)
+    assert mine.extra_dict() == want.extra_dict()
+    assert mine.resident_bytes() == want.resident_bytes()
+
+
+def _dna_index(n: int, sample_rate: int = 8):
+    codes = C.random_dna(n, seed=n)
+    jfm = JFM.build(codes, None, is_dna=True, sample_rate=sample_rate)
+    return codes, jfm, FMIndex.from_numpy(jfm.state_dict(),
+                                          jfm.extra_dict(), device=CPU)
+
+
+def _dna_patterns(codes, nq: int, seed: int) -> list[str]:
+    """Random patterns (mostly misses past a few bases) plus substrings
+    of the text (hits), at most 16 bases."""
+    rng = np.random.default_rng(seed)
+    text = C.decode_dna(codes)
+    pats = Q.random_patterns(nq, 1, 12, seed=seed)
+    for _ in range(40):
+        lo = int(rng.integers(0, len(codes)))
+        pats.append(text[lo:lo + int(rng.integers(1, 17))])
+    return [p for p in pats if p]
+
+
+# ---------------------------------------------------------------------------
+# (a) the index arrays
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("sample_rate", [8, 32])
+@pytest.mark.parametrize("n", DNA_N)
+def test_build_dna_matches_reference(n, sample_rate):
+    codes = C.random_dna(n, seed=n)
+    want = JFM.build(codes, None, is_dna=True, sample_rate=sample_rate)
+    _assert_same_index(FMIndex.build(codes, None, is_dna=True,
+                                     sample_rate=sample_rate, device=CPU),
+                       want)
+    # from a given (live) suffix array, as freeze() passes it
+    live = SuffixTable.from_codes(codes, is_dna=True, device=CPU)
+    _assert_same_index(FMIndex.build(codes, live.store.sa.numpy(),
+                                     is_dna=True, sample_rate=sample_rate,
+                                     device=CPU), want)
+
+
+@pytest.mark.parametrize("vocab", [2, 5, 40])
+def test_build_tokens_matches_reference(vocab):
+    rng = np.random.default_rng(vocab)
+    tokens = rng.integers(0, vocab, 1200).astype(np.int32)
+    _assert_same_index(FMIndex.build(tokens, None, is_dna=False, device=CPU),
+                       JFM.build(tokens, None, is_dna=False))
+
+
+# ---------------------------------------------------------------------------
+# (b) one index, both packages: search, rank, LF walks, fm_search
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n", DNA_N)
+def test_backward_search_matches_pallas_and_oracle(n):
+    codes, jfm, fm = _dna_index(n)
+    pats = _dna_patterns(codes, 150, seed=n)
+    _, jp, jl = JQ.encode_patterns(pats, 16)
+    _, pp, pl = Q.encode_patterns(pats, 16, device=CPU)
+    jsyms = JFS.syms_from_packed(jp, jl, 16)
+    syms = FS.syms_from_packed(pp, pl, 16)
+    np.testing.assert_array_equal(syms.numpy(), np.asarray(jsyms))
+    lo, hi = FS.search_syms(fm.arrays, syms)
+    jlo, jhi = JFS.search_syms(jfm.arrays, jsyms)
+    padded, B = JOPS._pad_to(jsyms, JFS.BLOCK_Q, 1, fill=-1)
+    klo, khi = JFS.fm_scan_pallas(padded, jfm.arrays.bwt, jfm.arrays.occ,
+                                  JFS.pallas_meta(jfm.arrays),
+                                  interpret=True)
+    for got, want, kern in ((lo, jlo, klo), (hi, jhi, khi)):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(kern)[:B])
+    np.testing.assert_array_equal(FS.fm_meta(fm.arrays).numpy(),
+                                  np.asarray(JFS.pallas_meta(jfm.arrays)))
+    count, first_rank = fm.count(pp, pl)
+    jcount, jfirst = jfm.count(jp, jl)
+    np.testing.assert_array_equal(count, jcount)
+    np.testing.assert_array_equal(first_rank, jfirst)
+    cc = codes.astype(np.int32)
+    for i, p in enumerate(pats[:30]):
+        want, _ = Q.brute_force_count(cc, C.encode_dna(p).astype(np.int32))
+        assert int(count[i]) == want, p
+
+
+@pytest.mark.parametrize("n", DNA_N)
+def test_rank_and_lf_walk_match_reference(n):
+    """Every (symbol, row) rank — i = rows included, which reaches past
+    the BWT when rows % 64 == 0 — and the LF walk of every row."""
+    _codes, jfm, fm = _dna_index(n)
+    rows = n + 1
+    i = np.tile(np.arange(rows + 1, dtype=np.int32), 4)
+    c = np.repeat(np.arange(4, dtype=np.int32), rows + 1)
+    got = FS.rank(fm.arrays, torch.from_numpy(c), torch.from_numpy(i))
+    want = JFS.rank(jfm.arrays, jnp.asarray(c), jnp.asarray(i))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    r = np.arange(rows, dtype=np.int64)
+    np.testing.assert_array_equal(fm.ranks_to_positions(r).numpy(),
+                                  jfm.ranks_to_positions(r))
+    np.testing.assert_array_equal(
+        FS.lf_walk(fm.arrays, torch.from_numpy(r)).numpy(),
+        np.asarray(JFS.lf_walk(jfm.arrays, jnp.asarray(r, jnp.int32))))
+    np.testing.assert_array_equal(fm.suffix_array().numpy(),
+                                  jfm.suffix_array())
+    # segment minimums over runs of rows: the text-order first_pos
+    starts = np.array([1, 5, rows - 3, 2], np.int64)
+    counts = np.array([4, 1, 3, rows - 2], np.int64)
+    want = [jfm.ranks_to_positions(np.arange(s, s + k)).min()
+            for s, k in zip(starts, counts)]
+    np.testing.assert_array_equal(
+        fm.segment_min_positions(starts, counts).numpy(), want)
+
+
+@pytest.mark.parametrize("n", DNA_N)
+def test_fm_search_matches_reference(n):
+    codes, jfm, fm = _dna_index(n)
+    pats = _dna_patterns(codes, 120, seed=n + 1)
+    _, jp, jl = JQ.encode_patterns(pats, 32)
+    _, pp, pl = Q.encode_patterns(pats, 32, device=CPU)
+    got = ops.fm_search(fm.arrays, pp, pl)
+    want = JOPS.fm_search(jfm.arrays, jp, jl)
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)), f)
+    assert bool((got.first_rank[~got.found] == -1).all())
+
+
+@pytest.mark.parametrize("n", DNA_N)
+def test_fm_search_can_skip_the_first_pos_walk(n):
+    """The table path derives text-order positions itself: without the
+    walk every field but ``first_pos`` (then -1) is unchanged."""
+    codes, _jfm, fm = _dna_index(n)
+    pats = _dna_patterns(codes, 60, seed=n + 2)
+    _, pp, pl = Q.encode_patterns(pats, 32, device=CPU)
+    full = ops.fm_search(fm.arrays, pp, pl)
+    bare = ops.fm_search(fm.arrays, pp, pl, first_pos=False)
+    for f in ("found", "count", "first_rank"):
+        assert torch.equal(getattr(bare, f), getattr(full, f)), f
+    assert bool((bare.first_pos == -1).all())
+
+
+@pytest.mark.parametrize("vocab", [2, 5, 40])
+def test_token_search_matches_reference(vocab):
+    rng = np.random.default_rng(vocab)
+    tokens = rng.integers(0, vocab, 1200).astype(np.int32)
+    jfm = JFM.build(tokens, None, is_dna=False)
+    fm = FMIndex.from_numpy(jfm.state_dict(), jfm.extra_dict(), device=CPU)
+    patt = np.zeros((12, 8), np.int32)
+    plen = np.zeros(12, np.int32)
+    for i in range(10):
+        lo = int(rng.integers(0, 1190))
+        k = int(rng.integers(1, 9))
+        patt[i, :k] = tokens[lo:lo + k]
+        plen[i] = k
+    patt[10, :2] = [vocab + 7, 0]            # out-of-vocab: empty run
+    plen[10] = 2
+    plen[11] = 0                             # matches every row
+    got = ops.fm_search(fm.arrays, torch.from_numpy(patt),
+                        torch.from_numpy(plen))
+    want = JOPS.fm_search(jfm.arrays, jnp.asarray(patt), jnp.asarray(plen))
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)), f)
+    assert int(got.count[10]) == 0
+    r = np.arange(1201)
+    np.testing.assert_array_equal(fm.ranks_to_positions(r).numpy(),
+                                  jfm.ranks_to_positions(r))
+
+
+# ---------------------------------------------------------------------------
+# (c) frozen tables: base only, after append, after minor_compact
+# ---------------------------------------------------------------------------
+def _assert_tables_agree(jt, pt, pats, top_k=5):
+    a, b = jt.scan(pats, top_k=top_k), pt.scan(pats, top_k=top_k)
+    for f in ("found", "count", "first_pos", "positions"):
+        np.testing.assert_array_equal(getattr(b, f), getattr(a, f), f)
+    jp, jl = jt.planner.encode(pats)
+    pp, pl = pt.planner.encode(pats)
+    for j_res, p_res in ((jt.planner.scan_encoded(jp, jl),
+                          pt.planner.scan_encoded(pp, pl)),
+                         (jt.scan_encoded(jp, jl), pt.scan_encoded(pp, pl))):
+        for f in FIELDS:
+            np.testing.assert_array_equal(getattr(p_res, f).numpy(),
+                                          np.asarray(getattr(j_res, f)), f)
+    np.testing.assert_array_equal(pt.locate(pats, top_k=3),
+                                  jt.locate(pats, top_k=3))
+
+
+@pytest.mark.parametrize("n", [127, 2048])
+def test_frozen_table_matches_reference_through_appends(n):
+    codes = C.random_dna(n, seed=n + 2)
+    kw = dict(is_dna=True, max_query_len=32)
+    jt = JTable.from_codes(codes, **kw)
+    jt.freeze()
+    pt = SuffixTable.from_codes(codes, device=CPU, **kw)
+    assert pt.freeze() is pt and pt.is_frozen
+    live = SuffixTable.from_codes(codes, device=CPU, **kw)
+    pats = [p for p in PATS if len(p) <= n] + _dna_patterns(codes, 30, n)
+    _assert_tables_agree(jt, pt, pats)
+    _assert_tables_agree(jt, live, pats)             # frozen == live
+    extra = "GATTACA" * 2 + C.decode_dna(C.random_dna(300, seed=n))
+    for t in (jt, pt, live):
+        t.append(extra)                           # boundary-straddling
+    _assert_tables_agree(jt, pt, pats)
+    _assert_tables_agree(jt, live, pats)
+    for t in (jt, pt, live):
+        t.minor_compact()
+        t.append(C.random_dna(90, seed=n + 3))
+    assert len(pt.runs) == 1 and pt.memtable.size == 90
+    _assert_tables_agree(jt, pt, pats)
+    _assert_tables_agree(jt, live, pats)
+    for p in ("AC", "GATTA"):
+        np.testing.assert_array_equal(pt.locate_range(p, limit=None),
+                                      jt.locate_range(p, limit=None))
+    s = pt.stats()["planner"]
+    assert s["mode_counts"][MODE_FM] > 0 and s["mode_counts"][MODE_SINGLE] == 0
+    assert s["fused_batches"] > 0
+
+
+@pytest.mark.parametrize("vocab", [2, 5, 40])
+def test_frozen_token_table_matches_reference(vocab):
+    rng = np.random.default_rng(vocab)
+    tokens = rng.integers(0, vocab, 1200).astype(np.int32)
+    kw = dict(is_dna=False, max_query_len=32)
+    jt = JTable.from_codes(tokens, **kw)
+    jt.freeze()
+    pt = SuffixTable.from_codes(tokens, device=CPU, **kw).freeze()
+    W = 8
+    patt = np.zeros((10, W), np.int32)
+    plen = np.zeros(10, np.int32)
+    for i in range(8):
+        lo = int(rng.integers(0, 1200 - W))
+        k = int(rng.integers(1, W + 1))
+        patt[i, :k] = tokens[lo:lo + k]
+        plen[i] = k
+    patt[8, :4] = rng.integers(0, vocab, 4)
+    plen[8] = 4
+    patt[9, :2] = [vocab + 7, 0]             # out-of-vocab symbol
+    plen[9] = 2
+    for step in range(2):
+        a = jt.scan_batch(jnp.asarray(patt), jnp.asarray(plen), top_k=4)
+        b = pt.scan_batch(torch.from_numpy(patt), torch.from_numpy(plen),
+                          top_k=4)
+        for f in ("count", "first_pos", "positions"):
+            np.testing.assert_array_equal(getattr(b, f), getattr(a, f), f)
+        assert int(b.count[9]) == 0
+        more = rng.integers(0, vocab, 150).astype(np.int32)
+        jt.append(more)
+        pt.append(more)
+
+
+def test_frozen_planner_modes_and_unported_persistence():
+    pt = SuffixTable.from_codes(C.random_dna(500, seed=1), is_dna=True,
+                                device=CPU).freeze()
+    patt, plen = pt.planner.encode(["ACG", "T"])
+    assert pt.planner.plan(2).mode == MODE_FM
+    with pytest.raises(ValueError, match="frozen"):
+        pt.planner.scan_encoded(patt, plen, mode=MODE_SINGLE)
+    live = SuffixTable.from_codes(C.random_dna(500, seed=1), is_dna=True,
+                                  device=CPU)
+    with pytest.raises(ValueError, match="frozen"):
+        live.planner.scan_encoded(patt, plen, mode=MODE_FM)
+    for mode in ("broadcast", "routed"):
+        with pytest.raises(NotImplementedError):
+            pt.planner.scan_encoded(patt, plen, mode=mode)
+    with pytest.raises(ValueError, match="unknown"):
+        pt.planner.scan_encoded(patt, plen, mode="nope")
+    with pytest.raises(NotImplementedError):
+        pt.fm.save("unused", 0)
+    with pytest.raises(NotImplementedError):
+        FMIndex.load("unused")
+    assert pt.count(["A"])[0] > 0
+    assert "dispatch_fm" in pt.stats()["latency"]
+
+
+# ---------------------------------------------------------------------------
+# (d) the fm_threshold policy, the vocab cap, sa_is_fully_sorted
+# ---------------------------------------------------------------------------
+def test_fm_threshold_policy_and_vocab_cap():
+    t = SuffixTable.from_codes(C.random_dna(500, seed=7), is_dna=True,
+                               fm_threshold=600, device=CPU)
+    assert not t.is_frozen
+    t.append(C.decode_dna(C.random_dna(200, seed=8)))
+    assert not t.is_frozen                      # the memtable doesn't count
+    t2 = SuffixTable.from_codes(C.random_dna(600, seed=7), is_dna=True,
+                                fm_threshold=600, device=CPU)
+    assert t2.is_frozen and t2.stats()["tiers"]["frozen"]
+    big = np.random.default_rng(0).integers(0, 50_000, 300).astype(np.int32)
+    tb = SuffixTable.from_codes(big, is_dna=False, max_query_len=16,
+                                fm_threshold=10, device=CPU)
+    assert not tb.is_frozen                     # policy no-op above the cap
+    with pytest.raises(ValueError, match="vocab"):
+        tb.freeze()
+    with pytest.raises(ValueError, match="vocab"):
+        FMIndex.build(np.arange(MAX_VOCAB + 1, dtype=np.int32), None,
+                      is_dna=False, device=CPU)
+    with pytest.raises(ValueError, match="empty"):
+        FMIndex.build(np.zeros(0, np.uint8), None, is_dna=True, device=CPU)
+    with pytest.raises(ValueError, match="does not match"):
+        t._attach_frozen(FMIndex.build(C.random_dna(499, seed=1), None,
+                                       is_dna=True, device=CPU))
+
+
+def test_sa_is_fully_sorted_matches_reference():
+    codes = C.encode_dna("A" * 64)
+    n = codes.size
+    true_sa = np.arange(n - 1, -1, -1).astype(np.int64)   # shortest first
+    rng = np.random.default_rng(3)
+    dna = C.random_dna(300, seed=3)
+    sa = SuffixTable.from_codes(dna, is_dna=True,
+                                device=CPU).store.sa.numpy()
+    swapped = sa.copy()
+    swapped[[10, 11]] = swapped[[11, 10]]
+    cases = [(codes, true_sa, True), (codes, true_sa[::-1].copy(), False),
+             (codes, np.zeros(n, np.int64), False),
+             (codes, true_sa[:-1].copy(), False),
+             (dna, sa, True), (dna, swapped, False),
+             (dna, rng.permutation(300), False),
+             (codes[:1], np.zeros(1, np.int64), True),
+             (codes[:0], np.zeros(0, np.int64), True)]
+    for c, s, want in cases:
+        assert bool(sa_is_fully_sorted(c, s)) is want
+        assert bool(j_sorted(c, s)) is want
+    # out-of-range rows are no order (the reference indexes past its
+    # rank array there)
+    assert not sa_is_fully_sorted(codes, np.full(n, n, np.int64))
+    assert not sa_is_fully_sorted(codes, np.full(n, -1, np.int64))
+
+
+def test_lf_walk_chunks_split_segments(monkeypatch):
+    """Chunks of the device LF walk cut through segments and rows; the
+    results do not depend on where."""
+    _codes, _jfm, fm = _dna_index(2048)
+    starts = np.array([1, 300, 1000, 1500], np.int64)
+    counts = np.array([40, 3, 450, 549], np.int64)
+    rows = np.arange(1, 2049, dtype=np.int64)
+    want_min = fm.segment_min_positions(starts, counts).numpy()
+    want_pos = fm.ranks_to_positions(rows).numpy()
+    monkeypatch.setattr("repro_torch.api.fm.LF_CHUNK", 37)
+    np.testing.assert_array_equal(
+        fm.segment_min_positions(starts, counts).numpy(), want_min)
+    np.testing.assert_array_equal(fm.ranks_to_positions(rows).numpy(),
+                                  want_pos)
+    np.testing.assert_array_equal(
+        want_min, [want_pos[s - 1:s - 1 + k].min()
+                   for s, k in zip(starts, counts)])

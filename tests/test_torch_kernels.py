@@ -184,3 +184,44 @@ def test_own_tier_stack_matches_reference(base_n, limit, chunks):
         np.testing.assert_array_equal(getattr(stack, k).numpy(), want[k], k)
     assert (stack.num_tiers, stack.rows, stack.max_query_len) == \
         (want["num_tiers"], want["rows"], want["max_query_len"])
+
+
+@pytest.mark.parametrize("nq,text_n", [(16, 512), (150, 2000), (260, 4096)])
+def test_tablet_scan_plain_matches_pallas_and_query(nq, text_n):
+    """``ops.tablet_scan`` on the CPU (the plain version) against the
+    Pallas kernel in interpret mode through JAX's ``ops.tablet_scan``,
+    the JAX dense oracle, and the counts and lower bounds of
+    ``query.query``."""
+    from repro.core.tablet import build_tablet_store as j_build
+    from repro_torch.core.tablet import store_from_numpy
+    codes = C.random_dna(text_n, seed=text_n)
+    js = j_build(codes)
+    store = store_from_numpy(
+        {k: np.asarray(getattr(js, k)) for k in
+         ("text_packed", "text_codes", "sa")}
+        | {k: getattr(js, k) for k in
+           ("n_real", "n_pad", "is_dna", "max_query_len")}, device=CPU)
+    W = 7
+    pats = Q.random_patterns(nq, 1, 12, seed=nq)
+    _, jp, jl = JQ.encode_patterns(pats, W * 16)
+    _, pp, pl = Q.encode_patterns(pats, W * 16, device=CPU)
+    jwin = JC.extract_window(js.text_packed, js.sa, W)
+    win = C.extract_window(store.text_packed, store.sa, W)
+    np.testing.assert_array_equal(win.numpy(), np.asarray(jwin))
+    got = ops.tablet_scan(pp, pl, win, store.sa, n_real=store.n_real)
+    want = JOPS.tablet_scan(jp, jl, jwin, js.sa, n_real=js.n_real)
+    jref = JREF.tablet_scan_ref(jp.T, jl, jwin.T, js.sa, n_real=js.n_real)
+    rref = ref.tablet_scan_ref(pp.T, pl, win.T, store.sa,
+                               n_real=store.n_real, row_chunk=97)
+    for name, g, w, jr, r in zip(("count", "less", "first_row"), got, want,
+                                 jref, rref):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), name)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(jr), name)
+        np.testing.assert_array_equal(r.numpy(), g.numpy(), name)
+    res = Q.query(store, pp, pl)
+    np.testing.assert_array_equal(got[0].numpy(), res.count.numpy())
+    f = res.found.numpy()
+    lb = res.first_rank.numpy() + store.pad_count
+    np.testing.assert_array_equal(got[1].numpy()[f], lb[f])
+    np.testing.assert_array_equal(got[2].numpy()[f], lb[f])

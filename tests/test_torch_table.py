@@ -92,13 +92,17 @@ def test_stats_and_unported_options():
     assert s["planner"]["fused_batches"] == 1
     assert s["planner"]["base_only_batches"] == 1
     assert "dispatch" in s["latency"] and "dispatch_fused" in s["latency"]
-    for kw in ({"root": "x"}, {"wal": True}, {"fm_threshold": 10},
-               {"max_runs": 2}, {"mesh": object()}):
+    for kw in ({"root": "x"}, {"wal": True}, {"max_runs": 2},
+               {"mesh": object()}):
         with pytest.raises(NotImplementedError):
             SuffixTable.from_codes("ACGT" * 8, device=CPU, **kw)
-    for name in ("compact", "freeze", "flush"):
+    for name in ("compact", "flush"):
         with pytest.raises(NotImplementedError):
             getattr(pt, name)()
+    # the frozen tier is ported: the policy and freeze() both take it
+    assert SuffixTable.from_codes("ACGT" * 8, device=CPU,
+                                  fm_threshold=10).is_frozen
+    assert pt.freeze().is_frozen and pt.stats()["tiers"]["frozen"]
     with pytest.raises(TypeError):
         SuffixTable.from_codes("ACGT", device=CPU, no_such_option=1)
 
@@ -146,3 +150,41 @@ def test_planner_rebind_serves_the_new_store():
     assert plan.scan(["TT"]).count[0] == 7
     np.testing.assert_array_equal(plan.locate(["TTTTTTT"], top_k=3),
                                   [[1, 0, -1]])
+
+
+@pytest.mark.parametrize("frozen", [False, True])
+def test_stats_schema_matches_reference(frozen):
+    """``stats()`` carries the reference's keys where the slice has them:
+    ``tiers`` (with ``frozen`` and the six ``resident_bytes`` keys) and
+    ``planner`` (all four ``mode_counts``), live and frozen; the frozen
+    index's size agrees too."""
+    base = C.random_dna(3000, seed=6)
+    kw = dict(is_dna=True, memtable_limit=500)
+    jt = JTable.from_codes(base, **kw)
+    pt = SuffixTable.from_codes(base, device=CPU, **kw)
+    if frozen:
+        jt.freeze()
+        pt.freeze()
+    for t in (jt, pt):
+        t.count(["ACGT", "A"])
+        t.append(C.random_dna(600, seed=7))
+        t.append(C.random_dna(100, seed=8))
+        t.count(["ACGT", "GATTACA"])
+    a, b = jt.stats(), pt.stats()
+    assert set(b["tiers"]) == set(a["tiers"])
+    assert set(b["tiers"]["resident_bytes"]) == set(
+        a["tiers"]["resident_bytes"]) == {"base_sa", "fm", "text_device",
+                                          "runs", "memtable", "text_host"}
+    assert set(b["planner"]["mode_counts"]) == set(
+        a["planner"]["mode_counts"])
+    assert b["planner"]["mode_counts"] == a["planner"]["mode_counts"]
+    assert b["tiers"]["frozen"] is a["tiers"]["frozen"] is frozen
+    # base_sa differs on a live table by design: the reference keeps a
+    # host mirror of the SA for first_pos, the port reduces on the device
+    for k in ("fm", "memtable", "text_host") + (("base_sa",) if frozen
+                                                 else ()):
+        assert b["tiers"]["resident_bytes"][k] == \
+            a["tiers"]["resident_bytes"][k], k
+    if frozen:
+        assert b["tiers"]["resident_bytes"]["text_device"] == 0
+        assert 0 < b["tiers"]["resident_bytes"]["fm"] < 3000 * 4 / 4

@@ -1,0 +1,117 @@
+#!/usr/bin/env python3
+"""Live-table A/B of two checkouts of the PyTorch port on one CUDA card.
+
+Runs the live phases of ``chip_smoke.py`` once per checkout, each in a
+fresh process, in the order A B B A: a 2**26-base table built on the
+card, the paper's workload (10,000 random patterns of 1-100 bases in
+batches of 512) base-only, three appends of 2**17 bases (one sealed run
+and a memtable), then the workload again over base + run + memtable.
+Each workload runs twice: ``cold`` (the first pass, first launches
+included, as chip_smoke measures it) and ``warm`` (result cache cleared,
+kernels loaded).  Run from anywhere::
+
+    python3 tools/torch_live_ab.py OLD_ROOT NEW_ROOT
+
+Each ROOT is the root of a checkout whose ``src/`` holds ``repro_torch``;
+each builds its own kernels under its ``build/``.  Prints one JSON line
+per run, then one ``[ab]`` line per (phase, pass) with both checkouts'
+mean queries/s and p50 ms.  Imports neither jax nor the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+TEXT_LEN = 2**26
+MEMTABLE_LIMIT = 2**18
+APPEND_LEN = 2**17
+N_QUERIES = 10_000
+BATCH = 512
+MAX_QUERY_LEN = 128
+PHASES = ("base_cold", "base_warm", "merged_cold", "merged_warm")
+
+
+def run_one(root: str) -> int:
+    """The live phases on the checkout at ``root``; prints one JSON line."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_live_ab: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(root, "src"))
+    from repro_torch.api import SuffixTable
+    from repro_torch.core import codec
+    from repro_torch.core import query as Q
+    from repro_torch.kernels import _build
+
+    _build.build()
+    base = codec.random_dna(TEXT_LEN, seed=0)
+    t0 = time.perf_counter()
+    table = SuffixTable.from_codes(base, is_dna=True,
+                                   max_query_len=MAX_QUERY_LEN,
+                                   memtable_limit=MEMTABLE_LIMIT)
+    torch.cuda.synchronize()
+    out = {"root": root, "build_s": time.perf_counter() - t0}
+    patterns = Q.random_patterns(N_QUERIES, 1, 100, seed=0)
+
+    def serve(tag: str) -> None:
+        for rep in ("cold", "warm"):
+            table.clear_cache()
+            lat = []
+            t_all = time.perf_counter()
+            for i in range(0, N_QUERIES, BATCH):
+                t = time.perf_counter()
+                table.scan(patterns[i:i + BATCH])
+                lat.append((time.perf_counter() - t) * 1e3)
+            total = time.perf_counter() - t_all
+            out[f"{tag}_{rep}"] = {
+                "queries_per_s": N_QUERIES / total,
+                "p50_ms": float(np.percentile(lat, 50)),
+                "p99_ms": float(np.percentile(lat, 99)),
+                "first_batch_ms": lat[0]}
+
+    serve("base")
+    for i in range(3):
+        table.append(codec.random_dna(APPEND_LEN, seed=1 + i))
+    serve("merged")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def main(argv: list[str]) -> int:
+    if len(argv) == 3 and argv[1] == "--one":
+        return run_one(argv[2])
+    if len(argv) != 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    a, b = (os.path.abspath(r) for r in argv[1:])
+    runs: dict[str, list[dict]] = {a: [], b: []}
+    for root in (a, b, b, a):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--one", root], capture_output=True,
+                              text=True, timeout=900)
+        if proc.returncode != 0:
+            print(f"torch_live_ab: the run on {root} failed "
+                  f"(exit {proc.returncode}):\n{proc.stderr[-4000:]}",
+                  file=sys.stderr)
+            return 1
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps(rec), flush=True)
+        runs[root].append(rec)
+    for ph in PHASES:
+        line = [f"[ab] {ph}"]
+        for name, root in (("old", a), ("new", b)):
+            recs = [r[ph] for r in runs[root]]
+            qps = sum(r["queries_per_s"] for r in recs) / len(recs)
+            p50 = sum(r["p50_ms"] for r in recs) / len(recs)
+            line.append(f"{name}_queries_per_s={qps:.1f} "
+                        f"{name}_p50_ms={p50:.4f}")
+        print(" ".join(line), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))
