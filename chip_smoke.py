@@ -31,12 +31,19 @@ through the public entry points at chromosome scale:
                  tier scan kernel); must equal ``[merged]`` and
                  ``[locate]``;
 9. ``[kernels]`` every kernel's launches on that run (must be > 0) and
-                 its result held against its plain PyTorch version on
-                 inputs taken from that run; a sample of counts is
+                 its result held against its plain PyTorch version(s)
+                 on inputs taken from that run; a sample of counts is
                  checked against a numpy brute-force scan of the text.
+                 The two searches (``tablet_scan``, ``tier_scan``) also
+                 print their rounds and probes (``[tablet]``,
+                 ``[tiers]``), and ``[ptxas]`` lines give every
+                 kernel's registers, shared memory and spills.
 
-It prints one JSON line of per-kernel numbers and, last, the device
-line.  Any build, launch or mismatch failure exits non-zero without it.
+It prints one JSON line of per-kernel numbers (``ms``: time per call as
+the host issues them; ``device_ms``: device time of launches queued back
+to back, the L2 warm; ``cold_ms``: device time of a launch that follows
+a flush of the L2) and, last, the device line.  Any build, launch or mismatch
+failure exits non-zero without it.
 It imports neither jax nor the JAX package.
 """
 from __future__ import annotations
@@ -56,19 +63,43 @@ N_QUERIES = 10_000
 BATCH = 512
 MAX_QUERY_LEN = 128
 SLICE_ROWS = 2**18          # rows the dense plain tablet scan is held on
+FLUSH_WORDS = 2**26         # int32 words (256 MiB) written to flush the L2
 
 # Published H100 SXM peaks (NVIDIA data sheet), used for the bounds.
 MEM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12          # float32 outside the tensor cores
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean device time of ``fn`` in ms over ``reps`` runs after one
-    warm-up, by CUDA events."""
+def cuda_ms(torch, fn, reps: int, *, queue_ahead: bool = False,
+            flush=None) -> float:
+    """Mean time of ``fn`` in ms over ``reps`` runs after one warm-up, by
+    CUDA events.  Plain events time the calls as the host issues them:
+    for a kernel of tens of µs the wrapper's host work per call is the
+    larger part.  With ``queue_ahead`` the card first spins ~25 ms
+    (``torch.cuda._sleep``), so the host has queued every launch before
+    the first starts, and the events time the kernels back to back: each
+    launch finds in the L2 what the one before it read.  With ``flush``
+    (a tensor larger than the 50 MB L2; queued ahead as well) every run
+    follows a write of that tensor and has its own pair of events: the
+    device time of a launch whose inputs start in HBM."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+
+    def ev():
+        return torch.cuda.Event(enable_timing=True)
+
+    if queue_ahead or flush is not None:
+        torch.cuda._sleep(50_000_000)
+    if flush is not None:
+        pairs = [(ev(), ev()) for _ in range(reps)]
+        for start, end in pairs:
+            flush.zero_()
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs) / reps
+    start, end = ev(), ev()
     start.record()
     for _ in range(reps):
         fn()
@@ -117,6 +148,91 @@ def fm_traffic(torch, FM, fa, syms):
         lo = torch.where(act, lo2, lo)
         hi = torch.where(act, hi2, hi)
     return int(ranks), int(words), lo.to(torch.int32), hi.to(torch.int32)
+
+
+def probed_rows(torch, trace):
+    """What a traced 17-ary search (``kary.search``) probed: the distinct
+    rows, each with the most window words any probe of it read, the
+    rounds in which some lane probed, the probes and the words they read
+    in all."""
+    rows = torch.cat([r for r, _ in trace])
+    words = torch.cat([w for _, w in trace])
+    uniq, inv = torch.unique(rows, return_inverse=True)
+    most = torch.zeros(uniq.shape, dtype=torch.int64, device=rows.device)
+    most.scatter_reduce_(0, inv, words, "amax")
+    rounds = sum(1 for r, _ in trace if r.numel())
+    return uniq, most, rounds, int(rows.numel()), int(words.sum())
+
+
+def tablet_traffic(torch, trace):
+    """Bytes a traced tablet search of this run's data reads (each read
+    once): 4 per distinct probed row (its position) + 4 per window word
+    the early-exit compare reads of it; plus the rounds, the probes and
+    the words compared in all.  From a binary search's trace this is what
+    the function needs; from the kernel's 17-ary one, what its probes
+    read."""
+    uniq, most, rounds, probes, words = probed_rows(torch, trace)
+    return 4 * int(uniq.numel()) + 4 * int(most.sum()), rounds, probes, words
+
+
+def tier_traffic(torch, traces, sa, text_packed, run_lo, run_hi):
+    """Bytes a traced tier search and the sweep of the match runs
+    ``[run_lo, run_hi)`` (T, B) of this run's data read (each read once):
+    per tier, 4 per distinct sa row that a probe or a swept run reads,
+    and 4 per distinct packed text word that the early-exit compares read
+    (words ``pos // 16 ..``, one more when ``pos % 16`` shifts the window
+    across a word); plus the most rounds of any tier, the probes and the
+    words compared in all.  Binary and 17-ary traces as in
+    :func:`tablet_traffic`."""
+    T, R = sa.shape
+    n_words = int(text_packed.shape[1])
+    dev = sa.device
+    n_bytes, rounds, probes, words = 0, 0, 0, 0
+    for t in range(T):
+        uniq, most, r, p, w = probed_rows(torch, traces[t])
+        rounds, probes, words = max(rounds, r), probes + p, words + w
+        lb = run_lo[t].to(torch.int64)
+        ub = run_hi[t].to(torch.int64)
+        cover = torch.zeros(R + 1, dtype=torch.int64, device=dev)
+        cover.index_add_(0, lb, torch.ones_like(lb))
+        cover.index_add_(0, ub, -torch.ones_like(ub))
+        touched = torch.cumsum(cover, 0)[:R] > 0
+        touched[uniq] = True
+        pos = sa[t, uniq].to(torch.int64)
+        span = most + (((pos % 16) != 0) & (most > 0)).to(torch.int64)
+        mark = torch.zeros(n_words, dtype=torch.bool, device=dev)
+        for j in range(int(span.max()) if span.numel() else 0):
+            idx = (pos // 16 + j)[span > j]
+            mark[idx[idx < n_words]] = True
+        n_bytes += 4 * int(touched.sum()) + 4 * int(mark.sum())
+    return n_bytes, rounds, probes, words
+
+
+def ptxas_report(build_dir, names):
+    """Registers, shared memory and spills of every kernel entry in the
+    nvcc logs of ``names`` (built with -Xptxas -v), one dict each."""
+    import re
+    out = []
+    for name in names:
+        log = build_dir / f"{name}.log"
+        if not log.exists():
+            continue
+        cur = None
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                k = re.search(r"\d+(\w+_kernel)", m.group(1))
+                cur = {"kernel": k.group(1) if k else m.group(1)}
+                out.append(cur)
+            elif cur is not None:
+                for key, pat in (("spill_stores", r"(\d+) bytes spill stores"),
+                                 ("spill_loads", r"(\d+) bytes spill loads"),
+                                 ("registers", r"Used (\d+) registers"),
+                                 ("smem_bytes", r"(\d+) bytes smem")):
+                    m = re.search(pat, line)
+                    if m:
+                        cur[key] = int(m.group(1))
+    return out
 
 
 def brute_positions(np, text, pattern):
@@ -182,11 +298,12 @@ def main() -> int:
     from repro_torch.api import SuffixTable
     from repro_torch.core import codec
     from repro_torch.core import query as Q
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import _build, kary, ops, ref
     from repro_torch.kernels import fm_scan as FM
     from repro_torch.kernels import tier_scan as TS
     from repro_torch.kernels.tablet_scan import BIG as NO_ROW
-    from repro_torch.kernels.tablet_scan import tablet_scan_cuda
+    from repro_torch.kernels.tablet_scan import (tablet_scan_cuda,
+                                                 tablet_scan_plain)
     from repro_torch.kernels.pack2bit import pack2bit_cuda
     from repro_torch.kernels.pattern_scan import (bounded_search_cuda,
                                                   pattern_compare_cuda)
@@ -211,6 +328,9 @@ def main() -> int:
     print(f"[nvcc] built {', '.join(_build.SOURCES)} in "
           f"{time.perf_counter() - t0:.3f} s into {_build.BUILD_DIR}",
           flush=True)
+    for k in ptxas_report(_build.BUILD_DIR, _build.SOURCES):
+        print("[ptxas] " + " ".join(f"{a}={b}" for a, b in k.items()),
+              flush=True)
 
     # ---------------- main path: every launch from here is counted ------
     _build.reset_launches()
@@ -361,15 +481,24 @@ def main() -> int:
     # ---------------- each kernel against its plain version -------------
     dev = store.device
     rows = []
+    flush = torch.empty(FLUSH_WORDS, dtype=torch.int32, device=dev)
 
-    def row(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops,
-            library_ms=None, **extra):
+    def row(name, source, replaces, err, kernel, reps, plain_ms, n_bytes,
+            n_ops, library_ms=None, **extra):
+        """One kernel's JSON row: ``ms`` is the time per call of
+        ``kernel`` as the host issues them, host work of the wrapper
+        included; ``device_ms`` the device time of launches back to back
+        (L2 warm), ``cold_ms`` of a launch after an L2 flush."""
         b, by = bound_ms(n_bytes, n_ops)
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b, "bound_by": by,
-                     "library_ms": library_ms, **extra})
+                     "max_abs_err": err, "ms": cuda_ms(torch, kernel, reps),
+                     "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                     "library_ms": library_ms,
+                     "device_ms": cuda_ms(torch, kernel, reps,
+                                          queue_ahead=True),
+                     "cold_ms": cuda_ms(torch, kernel, reps, flush=flush),
+                     **extra})
         check(launches[name] > 0, f"{name} launched on the main path")
         check(err == 0, f"{name} equals its plain version")
 
@@ -386,7 +515,7 @@ def main() -> int:
     shifts = 30 - 2 * torch.arange(16, dtype=torch.int64, device=dev)
     row("pack2bit", "src/repro_torch/kernels/csrc/pack2bit.cu",
         "src/repro/kernels/pack2bit.py:30", err,
-        cuda_ms(torch, lambda: pack2bit_cuda(codes), 20),
+        lambda: pack2bit_cuda(codes), 20,
         cuda_ms(torch, lambda: ref.pack2bit_ref(lanes.T), 3),
         TEXT_LEN + 4 * n_words, 2 * 16 * n_words,
         library_ms=cuda_ms(torch, lambda: (lanes << shifts).sum(dim=1), 5))
@@ -398,9 +527,9 @@ def main() -> int:
     row("bounded_search", "src/repro_torch/kernels/csrc/pattern_scan.cu",
         "src/repro/kernels/pattern_scan.py:55",
         max_abs_err(torch, [lb, ub], [plb, pub]),
-        cuda_ms(torch, lambda: bounded_search_cuda(
+        lambda: bounded_search_cuda(
             store.sa, store.text_packed, store.n_real, patt, plen,
-            store.n_pad), 20),
+            store.n_pad), 20,
         cuda_ms(torch, lambda: Q.search_bounds_plain(store, patt, plen), 2),
         2 * B * steps * 12 + B * W * 4 + 3 * B * 4, 2 * B * steps * W)
 
@@ -413,61 +542,112 @@ def main() -> int:
     row("pattern_compare", "src/repro_torch/kernels/csrc/pattern_scan.cu",
         "src/repro/kernels/pattern_scan.py:55",
         max_abs_err(torch, got, want),
-        cuda_ms(torch, lambda: pattern_compare_cuda(
-            win, patt, plen, pos, n_real=store.n_real), 50),
+        lambda: pattern_compare_cuda(
+            win, patt, plen, pos, n_real=store.n_real), 50,
         cuda_ms(torch, lambda: ref.pattern_compare_ref(
             win.T, patt.T, plen, pos, n_real=store.n_real), 5),
         2 * B * W * 4 + 2 * B * 4 + 3 * B, B * W)
 
-    # tier_scan over the live run + memtable
+    # tier_scan over the live run + memtable: the kernel reads the stacked
+    # packed text and sa; held against its plain 17-ary version, the
+    # dense plain version (the TPU kernel's algorithm, over windows) and
+    # the binary-search twin
     stack = table._tierset().stack
-    wt = ops.tier_windows(stack, W)
     meta = ops.tier_meta(stack)
     pt = patt.T.contiguous()
-    got = TS.tier_scan_cuda(pt, plen, wt, stack.sa, meta)
+    args = (pt, plen, stack.text_packed, stack.sa, stack.pad_cnt, meta)
+    got = TS.tier_scan_cuda(*args)
+    traces, bin_traces = [], []
+    plain = TS.tier_scan_plain(*args, trace=traces)
+    binary = TS.tier_scan_plain(*args, trace=bin_traces, arity=2)
+    wt = ref.tier_windows(stack, W)
     t1 = time.perf_counter()
-    want = ref.tier_scan_ref(pt, plen, wt, stack.sa, meta)
+    dense = ref.tier_scan_ref(pt, plen, wt, stack.sa, meta)
     torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t1) * 1e3
+    dense_ms = (time.perf_counter() - t1) * 1e3
+    del wt
     twin = TS.fused_tier_scan(stack, patt, plen)
-    err = max(max_abs_err(torch, got, want), max_abs_err(torch, got, twin))
-    T, _, R = wt.shape
-    pairs = B * int(stack.n_rows.sum())
+    err = max(max_abs_err(torch, got, w)
+              for w in (plain, binary, dense, twin))
+    T, R = (int(d) for d in stack.sa.shape)
+    # bytes: the sa rows and text words that a binary search of both
+    # bounds and the match runs past their padding read (tier_traffic),
+    # the pattern words in use, plen, meta, two pad_cnt entries per tier
+    # and the outputs; operations: ~4 per word compared.  The 17-ary
+    # search's own reads are counted apart (kary_bytes).
+    used_words = int(((plen.to(torch.int64) + 15) // 16).sum())
+    fixed = 4 * used_words + 4 * B + 40 * T + 4 * T * B * 4
+    less = got[1].to(torch.int64)
+    run_hi = less + got[2]
+    run_lo = less.maximum(TS.pad_prefix(stack.pad_cnt)[:, None]).minimum(
+        run_hi)
+    t_bytes, t_bin_rounds, t_bin_probes, t_bin_words = tier_traffic(
+        torch, bin_traces, stack.sa, stack.text_packed, run_lo, run_hi)
+    k_bytes, t_rounds, t_probes, t_words = tier_traffic(
+        torch, traces, stack.sa, stack.text_packed, run_lo, run_hi)
     row("tier_scan", "src/repro_torch/kernels/csrc/tier_scan.cu",
         "src/repro/kernels/tier_scan.py:338", err,
-        cuda_ms(torch, lambda: TS.tier_scan_cuda(pt, plen, wt, stack.sa,
-                                                 meta), 10),
-        plain_ms, T * W * R * 4 + T * R * 4 + W * B * 4 + B * 4 + T * 32
-        + 4 * T * B * 4, pairs)
+        lambda: TS.tier_scan_cuda(*args), 50,
+        cuda_ms(torch, lambda: TS.tier_scan_plain(*args), 2),
+        t_bytes + fixed, 4 * t_bin_words, rounds=t_rounds,
+        binary_rounds=t_bin_rounds, kary_bytes=k_bytes + fixed,
+        dense_plain_ms=dense_ms)
     print(f"[tiers] T={T} rows={R} n_rows={stack.n_rows.tolist()} "
-          f"twin_ms={cuda_ms(torch, lambda: TS.fused_tier_scan(stack, patt, plen), 2):.4f}",
+          f"rounds={t_rounds} max_rounds={kary.max_rounds(R)} "
+          f"probes={t_probes} words={t_words} kary_bytes={k_bytes + fixed} "
+          f"binary_rounds={t_bin_rounds} binary_probes={t_bin_probes} "
+          f"binary_words={t_bin_words} bound_bytes={t_bytes + fixed} "
+          f"run_rows={int(got[2].sum())} longest_run={int(got[2].max())} "
+          f"swept_rows={int((run_hi - run_lo).sum())} "
+          f"longest_sweep={int((run_hi - run_lo).max())} "
+          f"dense_plain_ms={dense_ms:.4f} twin_ms="
+          f"{cuda_ms(torch, lambda: TS.fused_tier_scan(stack, patt, plen), 2):.4f}",
           flush=True)
 
     # tablet_scan: the main path's launch over all 2**26 rows was held
-    # against the plain binary search's bounds in [linear]; the dense
-    # plain version runs on a contiguous slice of 2**18 rows (all 2**26
-    # would take minutes)
-    sl = slice(TEXT_LEN // 2, TEXT_LEN // 2 + SLICE_ROWS)
-    pt = patt.T.contiguous()
-    got = tablet_scan_cuda(pt, plen, rows_wt[:, sl], pos_sorted[sl],
-                           n_real=store.n_real)
-    t1 = time.perf_counter()
-    want = ref.tablet_scan_ref(pt, plen, rows_wt[:, sl], pos_sorted[sl],
-                               n_real=store.n_real)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t1) * 1e3
+    # against the plain binary search's bounds in [linear]; here the
+    # kernel on all rows against its plain 17-ary version, and on a
+    # contiguous slice of 2**18 rows against the dense plain version
+    # (all 2**26 would take minutes)
     R = int(rows_wt.shape[1])
+    full = (pt, plen, rows_wt, pos_sorted)
+    got = tablet_scan_cuda(*full, n_real=store.n_real)
+    trace, bin_trace = [], []
+    plain = tablet_scan_plain(*full, n_real=store.n_real, trace=trace)
+    binary = tablet_scan_plain(*full, n_real=store.n_real, trace=bin_trace,
+                               arity=2)
+    sl = slice(TEXT_LEN // 2, TEXT_LEN // 2 + SLICE_ROWS)
+    part = (pt, plen, rows_wt[:, sl], pos_sorted[sl])
+    got_sl = tablet_scan_cuda(*part, n_real=store.n_real)
+    t1 = time.perf_counter()
+    dense = ref.tablet_scan_ref(*part, n_real=store.n_real)
+    torch.cuda.synchronize()
+    dense_ms = (time.perf_counter() - t1) * 1e3
+    fixed = 4 * used_words + 4 * B + 3 * B * 4
+    b_bytes, b_bin_rounds, b_bin_probes, b_bin_words = tablet_traffic(
+        torch, bin_trace)
+    k_bytes, b_rounds, b_probes, b_words = tablet_traffic(torch, trace)
     row("tablet_scan", "src/repro_torch/kernels/csrc/tablet_scan.cu",
         "src/repro/kernels/tablet_scan.py:82",
-        max(lin_err, max_abs_err(torch, got, want)),
-        cuda_ms(torch, lambda: tablet_scan_cuda(
-            pt, plen, rows_wt, pos_sorted, n_real=store.n_real), 5),
-        plain_ms, W * R * 4 + R * 4 + W * B * 4 + B * 4 + 3 * B * 4, B * R,
-        plain_rows=SLICE_ROWS)
+        max(lin_err, max_abs_err(torch, got, plain),
+            max_abs_err(torch, got, binary),
+            max_abs_err(torch, got_sl, dense)),
+        lambda: tablet_scan_cuda(*full, n_real=store.n_real), 50,
+        cuda_ms(torch, lambda: tablet_scan_plain(*full, n_real=store.n_real),
+                2),
+        b_bytes + fixed, 4 * b_bin_words, rounds=b_rounds,
+        binary_rounds=b_bin_rounds, kary_bytes=k_bytes + fixed,
+        dense_plain_ms=dense_ms, dense_plain_rows=SLICE_ROWS)
     slice_ms = cuda_ms(torch, lambda: tablet_scan_cuda(
-        pt, plen, rows_wt[:, sl], pos_sorted[sl], n_real=store.n_real), 20)
-    print(f"[tablet] slice_rows={SLICE_ROWS} kernel_slice_ms={slice_ms:.4f} "
-          f"plain_slice_ms={plain_ms:.4f}", flush=True)
+        *part, n_real=store.n_real), 50, queue_ahead=True)
+    print(f"[tablet] rows={R} rounds={b_rounds} "
+          f"max_rounds={kary.max_rounds(R)} probes={b_probes} "
+          f"words={b_words} kary_bytes={k_bytes + fixed} "
+          f"binary_rounds={b_bin_rounds} binary_probes={b_bin_probes} "
+          f"binary_words={b_bin_words} bound_bytes={b_bytes + fixed} "
+          f"slice_rows={SLICE_ROWS} "
+          f"kernel_slice_ms={slice_ms:.4f} dense_plain_slice_ms="
+          f"{dense_ms:.4f}", flush=True)
 
     # fm_scan on the frozen table's index, first batch of the workload
     fa = frozen.fm.arrays
@@ -484,8 +664,7 @@ def main() -> int:
           "the fm_scan traffic count followed the kernel's search")
     row("fm_scan", "src/repro_torch/kernels/csrc/fm_scan.cu",
         "src/repro/kernels/fm_scan.py:260", max_abs_err(torch, got, want),
-        cuda_ms(torch, lambda: FM.fm_scan_cuda(syms, fa.bwt, fa.occ, meta),
-                50),
+        lambda: FM.fm_scan_cuda(syms, fa.bwt, fa.occ, meta), 50,
         cuda_ms(torch, lambda: FM.search_syms(fa, syms), 1),
         4 * ranks + 4 * words + fm_steps * B * 4 + 2 * B * 4 + 32,
         9 * words)

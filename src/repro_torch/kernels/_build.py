@@ -7,8 +7,9 @@ is included, so a source builds in seconds; the wrappers pass
 ``tensor.data_ptr()`` and ``torch.cuda.current_stream().cuda_stream``.
 
 Libraries land in ``build/repro_torch_kernels/`` at the root of the
-checkout (listed in ``.gitignore``), named by a hash of their source, so
-an edited source is rebuilt and a stale library is never loaded.  A
+checkout (listed in ``.gitignore``), named by a hash of their source and
+of every shared header ``csrc/*.cuh``, so an edited source or header is
+rebuilt and a stale library is never loaded.  A
 failed build raises; nothing falls back to the plain version.
 """
 from __future__ import annotations
@@ -57,9 +58,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` builds to: named by a digest of the
+    source and of every header in ``csrc``, which any source may
+    include."""
+    h = hashlib.sha256()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=SOURCES) -> dict[str, Path]:

@@ -6,12 +6,7 @@
 // bounded_search, the round loop of repro/core/query.py::
 // _bounded_search that drives it.
 //
-// Words are big-endian 2-bit DNA (16 bases per uint32), so an unsigned
-// word compare is a 16-base lexicographic compare.  Word w of a query
-// keeps its first clamp(plen - 16w, 0, 16) bases; the shift by 32 that
-// r == 0 would need is undefined in C, hence the guard in word_mask.  A
-// suffix shorter than the pattern (pos + plen > n_real) is "less",
-// never "equal".
+// The mask, text word and compare live in search.cuh.
 //
 // Bound: the compare entry point is bytes (2W words in, 3 bytes out per
 // query).  The search is latency: each of its ceil(log2(n+1)) rounds
@@ -19,54 +14,7 @@
 // thread per (query, bound); both bounds of all queries run all rounds
 // in one launch, and a thread stops at the first differing word and
 // once its interval is empty.
-#include <cstdint>
-#include <cuda_runtime.h>
-
-__device__ __forceinline__ uint32_t word_mask(int plen, int w) {
-  int r = plen - w * 16;
-  r = r < 0 ? 0 : (r > 16 ? 16 : r);
-  if (r == 0) return 0u;
-  if (r == 16) return 0xFFFFFFFFu;
-  return ~((1u << (32 - 2 * r)) - 1u);
-}
-
-// Word w of the suffix starting at base pos, funnel-shifted out of the
-// packed text; words past the end read 0 (codec.extract_window).
-__device__ __forceinline__ uint32_t text_word(const uint32_t* __restrict__ t,
-                                              long long n_words,
-                                              long long pos, int w) {
-  long long idx = (pos >> 4) + w;
-  uint32_t sh = 2u * (uint32_t)(pos & 15);
-  uint32_t hi = idx < n_words ? t[idx] : 0u;
-  if (sh == 0) return hi;
-  uint32_t lo = idx + 1 < n_words ? t[idx + 1] : 0u;
-  return (hi << sh) | (lo >> (32u - sh));
-}
-
-// lt / eq of a suffix window against a pattern at depth plen.
-template <typename Window>
-__device__ __forceinline__ void compare(Window win,
-                                        const uint32_t* __restrict__ patt,
-                                        int W, int plen, long long pos,
-                                        long long n_real, bool& lt,
-                                        bool& eq) {
-  bool pe = true;
-  lt = false;
-  for (int w = 0; w < W; ++w) {
-    uint32_t m = word_mask(plen, w);
-    if (m == 0u) break;  // this and every later word is masked out
-    uint32_t a = win(w) & m;
-    uint32_t b = patt[w] & m;
-    if (a != b) {
-      lt = a < b;
-      pe = false;
-      break;
-    }
-  }
-  bool truncated = pos + (long long)plen > n_real;
-  eq = pe && !truncated;
-  lt = lt || (pe && truncated);
-}
+#include "search.cuh"
 
 __global__ void pattern_compare_kernel(const uint32_t* __restrict__ win,
                                        const uint32_t* __restrict__ patt,

@@ -1,132 +1,177 @@
-// Dense multi-tier scan for Hopper: every pattern against every sorted
-// row of every delta tier (sealed runs + memtable), with the straddle
-// rule applied in the same pass.
+// Multi-tier scan for Hopper: every pattern against every delta tier
+// (sealed runs + memtable), by a 17-ary search per (query, tier) over
+// the tier's sorted rows, then the straddle rule over the match run.
 //
 // Replaces the TPU kernel repro/kernels/tier_scan.py::tier_scan_pallas.
 //
 // Per tier t (meta row [n_real, n_rows, offset, lo, hi, 0, 0, 0]) and
 // query q, over rows r < n_rows:
-//   eq     = window prefix-equals the pattern to depth plen and the
-//            suffix is not shorter than the pattern (sa + plen <= n_real)
-//   lt     = window < pattern, or prefix-equal but truncated
+//   eq     = the suffix at sa[t, r] prefix-equals the pattern to depth
+//            plen and is not shorter than it (sa + plen <= n_real)
+//   lt     = suffix < pattern, or prefix-equal but truncated
 //   g      = sa + offset (global start), e = g + plen
 //   owned  = eq && lo < e <= hi                  (the straddle rule)
 //   count  = #owned, less = #lt, matches = #eq, first_g = min owned g
 // first_g is 2**30 when the tier owns no match.
 //
-// Bound: operations.  The work is T * B * n_rows compares of up to W
-// words each; bytes are small (the windows are read once per query
-// tile).  Design: grid (row tile, query tile, tier).  A block stages its
-// RT rows' windows and sa and its QT patterns in shared memory, each
-// thread owns one query and walks the tile's rows (every thread reads
-// the same row at once: a shared-memory broadcast), stopping each
-// compare at the first differing word.  The TPU kernel carried its sums
-// across the sequential row axis of its grid; here blocks run in no
-// order, so each thread adds its tile's partial sums to the outputs
-// with atomics (atomicMin for first_g).  Outputs are pre-set by the
-// wrapper to 0 / 2**30.
-#include <cstdint>
-#include <cuda_runtime.h>
+// Contract: each tier's rows [0, n_rows) are sorted suffix rows (rows
+// past n_rows are bucket padding, not sorted, and never read).  Over
+// sorted rows "row < pattern" is monotone (a truncated prefix-equal row
+// counts as less; pad rows sort first and are truncated), so less = lb,
+// the first row where lt is false, matches = ub - lb with ub the first
+// row where lt || eq is false, and the rows [lb, ub) are exactly the
+// eq rows: count and first_g need only those.
+//
+// Padding: rows whose position lies at or past the tier's own text (sa
+// >= hi - offset: the bucket padding of symbol 0 and the store's pad
+// rows) are never owned (e > hi).  pad_cnt[t, r] counts them among rows
+// [0, r).  Padding with the smallest symbol sorts every such row first
+// (a suffix 0^j lies before every suffix holding another symbol), so
+// when pad_cnt[t, n] == n for n = pad_cnt[t, R], rows [0, n) are all
+// padding and the sweep starts at max(lb, n).
+//
+// Bound: latency.  Each search round is two dependent gathers (sa at
+// the splitter row, then the text words at that position); the bytes
+// are those of the probed rows and the match runs.  Design:
+//   1. one warp per (query, tier), blocks of 4 warps; lanes 0-15 and
+//      16-31 search the two bounds (search.cuh warp_kary_bounds), 16
+//      splitters per round: 5 rounds for a 2**19-row tier where a binary
+//      search needs 20.  Probes read sa and the stacked packed text
+//      directly (text_word), so no (T, W, R) window tensor is built.
+//   2. the straddle rule over the match runs only, their padding
+//      skipped, by the whole block: after the searches its 128 threads
+//      sweep each of its 4 runs in turn (coalesced loads of sa, 16
+//      independent loads in flight per thread), count by warp sums and
+//      first_g by warp minimums into shared memory.  The launch lasts
+//      as long as the block with the longest run takes: a 1-base
+//      pattern's run holds a quarter of a tier's real rows, and at the
+//      main path's shape also 262,017 rows of padding, which it skips.
+//   3. the warp that searched a run reduces the block's 4 partials and
+//      lane 0 writes its four outputs: no atomics and no preset outputs.
+// ptxas (-Xptxas -v, sm_90a): registers, shared memory and spills are
+// printed by chip_smoke.py ([ptxas] line) and recorded in PERF.md.
+#include "search.cuh"
 
-#define BIG (1 << 30)
+#define WARPS 4    // warps per block: one (query, tier) each
+#define UNROLL 16  // independent sa loads in flight per thread in a sweep
 
-__device__ __forceinline__ uint32_t word_mask(int plen, int w) {
-  int r = plen - w * 16;
-  r = r < 0 ? 0 : (r > 16 ? 16 : r);
-  if (r == 0) return 0u;
-  if (r == 16) return 0xFFFFFFFFu;
-  return ~((1u << (32 - 2 * r)) - 1u);
-}
+__global__ void __launch_bounds__(WARPS * 32)
+tier_scan_kernel(const uint32_t* __restrict__ patt,   // (W, B)
+                 const int32_t* __restrict__ plen,    // (B,)
+                 const uint32_t* __restrict__ text,   // (T, n_words)
+                 long long n_words,
+                 const int32_t* __restrict__ sa,      // (T, R)
+                 const int32_t* __restrict__ pad_cnt, // (T, R + 1)
+                 const int32_t* __restrict__ meta,    // (T, 8)
+                 int T, int B, int W, int R,
+                 int32_t* __restrict__ count,         // (T, B)
+                 int32_t* __restrict__ less,
+                 int32_t* __restrict__ matches,
+                 int32_t* __restrict__ first) {
+  __shared__ uint32_t s_patt[WARPS][MAX_WORDS];
+  __shared__ int s_start[WARPS], s_len[WARPS];          // this block's runs
+  __shared__ int s_cnt[WARPS][WARPS], s_min[WARPS][WARPS];  // [run][warp]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long n_items = (long long)T * B;
+  const long long item0 = (long long)blockIdx.x * WARPS;
+  const long long item = item0 + warp;  // t * B + q
 
-__global__ void tier_scan_kernel(const uint32_t* __restrict__ patt,   // (W, B)
-                                 const int32_t* __restrict__ plen,    // (B,)
-                                 const uint32_t* __restrict__ win,    // (T, W, R)
-                                 const int32_t* __restrict__ sa,      // (T, R)
-                                 const int32_t* __restrict__ meta,    // (T, 8)
-                                 int B, int W, int R, int RT,
-                                 int32_t* __restrict__ count,         // (T, B)
-                                 int32_t* __restrict__ less,
-                                 int32_t* __restrict__ matches,
-                                 int32_t* __restrict__ first) {
-  extern __shared__ uint32_t smem[];
-  const int QT = blockDim.x;
-  const int t = blockIdx.z;
-  const int row0 = blockIdx.x * RT;
-  const int q = blockIdx.y * QT + threadIdx.x;
-  const int32_t* m = meta + 8 * t;
-  const long long n_real = m[0];
-  const int n_rows = m[1] < R ? m[1] : R;  // rows past R do not exist
-  const long long offset = m[2], lo_b = m[3], hi_b = m[4];
-  if (row0 >= n_rows) return;  // uniform: the block scans only stack padding
-  const int nr = min(RT, n_rows - row0);
-
-  uint32_t* s_win = smem;                               // (W, RT)
-  int32_t* s_sa = reinterpret_cast<int32_t*>(s_win + W * RT);  // (RT,)
-  uint32_t* s_patt = reinterpret_cast<uint32_t*>(s_sa + RT);  // (W, QT)
-  const uint32_t* win_t = win + (long long)t * W * R;
-  for (int i = threadIdx.x; i < W * nr; i += QT) {
-    int w = i / nr, r = i - w * nr;
-    s_win[w * RT + r] = win_t[(long long)w * R + row0 + r];
+  // 1. the two bounds of this warp's (query, tier), and the sweep's start
+  int lb = 0, ub = 0, start = 0;
+  if (item < n_items) {  // uniform per warp
+    const int t = (int)(item / B), q = (int)(item % B);
+    const int32_t* m = meta + 8 * t;
+    const long long n_real = m[0];
+    const int n_rows = max(0, min(m[1], R));  // rows past R do not exist
+    if (lane < W) s_patt[warp][lane] = patt[(long long)lane * B + q];
+    __syncwarp();
+    const uint32_t* p = s_patt[warp];
+    const int L = plen[q];
+    const uint32_t* text_t = text + (long long)t * n_words;
+    const int32_t* sa_t = sa + (long long)t * R;
+    const int32_t* pc = pad_cnt + (long long)t * (R + 1);
+    const int n_pads = pc[R];
+    warp_kary_bounds(n_rows, [&](int row, bool upper) {
+      long long pos = sa_t[row];
+      bool lt, eq;
+      compare([=](int w) { return text_word(text_t, n_words, pos, w); }, p,
+              W, L, pos, n_real, lt, eq);
+      return upper ? (lt || eq) : lt;
+    }, lb, ub);
+    const int skip = pc[n_pads] == n_pads ? n_pads : 0;  // rows [0, skip)
+    start = min(max(lb, skip), ub);
   }
-  for (int r = threadIdx.x; r < nr; r += QT)
-    s_sa[r] = sa[(long long)t * R + row0 + r];
-  if (q < B)
-    for (int w = 0; w < W; ++w)
-      s_patt[w * QT + threadIdx.x] = patt[(long long)w * B + q];
+  if (lane == 0) {
+    s_start[warp] = start;
+    s_len[warp] = ub - start;
+  }
   __syncthreads();
-  if (q >= B) return;
 
-  const int L = plen[q];
-  int nw = (L + 15) / 16;
-  nw = nw < W ? nw : W;
-  int c_own = 0, c_lt = 0, c_eq = 0;
-  long long f = BIG;
-  for (int r = 0; r < nr; ++r) {
-    bool pe = true, lt = false;
-    for (int w = 0; w < nw; ++w) {
-      uint32_t mk = word_mask(L, w);
-      uint32_t a = s_win[w * RT + r] & mk;
-      uint32_t b = s_patt[w * QT + threadIdx.x] & mk;
-      if (a != b) {
-        lt = a < b;
-        pe = false;
-        break;
+  // 2. the straddle rule over each run of the block, by all its threads
+  const int stride = WARPS * 32;
+  for (int k = 0; k < WARPS; ++k) {
+    const int len = s_len[k];
+    int cnt = 0, mn = BIG;
+    if (len > 0) {  // uniform per block
+      const long long it = item0 + k;
+      const int t = (int)(it / B), q = (int)(it % B);
+      const int32_t* m = meta + 8 * t;
+      const long long offset = m[2], lo_b = m[3], hi_b = m[4];
+      const long long L = plen[q];
+      const int32_t* run = sa + (long long)t * R + s_start[k];
+      for (int r0 = threadIdx.x; r0 < len; r0 += stride * UNROLL) {
+        int v[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          int r = r0 + u * stride;
+          v[u] = r < len ? __ldg(run + r) : 0;
+        }
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          long long g = v[u] + offset, e = g + L;
+          if (r0 + u * stride < len && e > lo_b && e <= hi_b) {
+            ++cnt;
+            mn = min(mn, (int)g);  // owned: g < hi <= 2**30
+          }
+        }
       }
     }
-    long long pos = s_sa[r];
-    bool truncated = pos + L > n_real;
-    bool eq = pe && !truncated;
-    lt = lt || (pe && truncated);
-    c_lt += lt;
-    c_eq += eq;
-    if (eq) {
-      long long g = pos + offset;
-      long long e = g + L;
-      if (e > lo_b && e <= hi_b) {
-        ++c_own;
-        f = g < f ? g : f;
-      }
+    cnt = __reduce_add_sync(FULL_MASK, cnt);
+    mn = __reduce_min_sync(FULL_MASK, mn);
+    if (lane == 0) {
+      s_cnt[k][warp] = cnt;
+      s_min[k][warp] = mn;
     }
   }
-  long long o = (long long)t * B + q;
-  if (c_own) atomicAdd(&count[o], c_own);
-  if (c_lt) atomicAdd(&less[o], c_lt);
-  if (c_eq) atomicAdd(&matches[o], c_eq);
-  if (f < BIG) atomicMin(&first[o], (int)f);
+  __syncthreads();
+
+  // 3. each warp reduces its run's partials, lane 0 writes the outputs
+  if (item < n_items) {
+    int c = lane < WARPS ? s_cnt[warp][lane] : 0;
+    int f = lane < WARPS ? s_min[warp][lane] : BIG;
+    c = __reduce_add_sync(FULL_MASK, c);
+    f = __reduce_min_sync(FULL_MASK, f);
+    if (lane == 0) {
+      count[item] = c;
+      less[item] = lb;
+      matches[item] = ub - lb;
+      first[item] = f;
+    }
+  }
 }
 
 extern "C" int tier_scan_launch(const uint32_t* patt, const int32_t* plen,
-                                const uint32_t* win, const int32_t* sa,
-                                const int32_t* meta, int T, int B, int W,
-                                int R, int32_t* count, int32_t* less,
-                                int32_t* matches, int32_t* first,
-                                cudaStream_t stream) {
-  if (T <= 0 || B <= 0 || R <= 0) return 0;
-  const int QT = 128, RT = 256;
-  size_t smem = ((size_t)W * RT + RT + (size_t)W * QT) * 4;
-  dim3 grid((R + RT - 1) / RT, (B + QT - 1) / QT, T);
-  tier_scan_kernel<<<grid, QT, smem, stream>>>(patt, plen, win, sa, meta, B,
-                                               W, R, RT, count, less,
-                                               matches, first);
+                                const uint32_t* text, long long n_words,
+                                const int32_t* sa, const int32_t* pad_cnt,
+                                const int32_t* meta,
+                                int T, int B, int W, int R, int32_t* count,
+                                int32_t* less, int32_t* matches,
+                                int32_t* first, cudaStream_t stream) {
+  long long n_items = (long long)T * B;
+  if (n_items <= 0) return 0;
+  tier_scan_kernel<<<(unsigned)((n_items + WARPS - 1) / WARPS), WARPS * 32,
+                     0, stream>>>(patt, plen, text, n_words, sa, pad_cnt,
+                                  meta, T, B, W, R, count, less, matches,
+                                  first);
   return (int)cudaGetLastError();
 }

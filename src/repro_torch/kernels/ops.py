@@ -18,7 +18,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import tier_scan as _tier
 from repro_torch.kernels.pack2bit import pack2bit_cuda
 from repro_torch.kernels.pattern_scan import pattern_compare_cuda
-from repro_torch.kernels.tablet_scan import tablet_scan_cuda
+from repro_torch.kernels.tablet_scan import (tablet_scan_cuda,
+                                             tablet_scan_plain)
 
 
 def pack2bit(codes: torch.Tensor) -> torch.Tensor:
@@ -44,14 +45,14 @@ def pattern_compare(windows, patterns, plen, pos, *, n_real: int):
 
 
 def tablet_scan(patterns, plen, windows, pos, *, n_real: int):
-    """Linear scan of BR sorted-row windows by BQ patterns: patterns
-    (BQ, W), plen (BQ,), windows (BR, W), pos (BR,).  Returns (count,
-    less, first_row) int32 (BQ,); first_row is 2**30 when no row
-    matches."""
+    """Scan of BR consecutive sorted-row windows by BQ patterns:
+    patterns (BQ, W), plen (BQ,), windows (BR, W), pos (BR,).  Returns
+    (count, less, first_row) int32 (BQ,); first_row is 2**30 when no row
+    matches.  The kernel on CUDA, its plain 17-ary search elsewhere."""
     args = (patterns.T, plen.to(torch.int32), windows.T, pos)
     if patterns.is_cuda:
         return tablet_scan_cuda(*args, n_real=n_real)
-    return ref.tablet_scan_ref(*args, n_real=n_real)
+    return tablet_scan_plain(*args, n_real=n_real)
 
 
 def tier_meta(stack) -> torch.Tensor:
@@ -63,24 +64,17 @@ def tier_meta(stack) -> torch.Tensor:
     return meta
 
 
-def tier_windows(stack, n_words: int) -> torch.Tensor:
-    """(T, W, R) uint32: the packed window of every stacked row."""
-    return torch.stack([
-        codec.extract_window(stack.text_packed[t], stack.sa[t], n_words).T
-        for t in range(stack.num_tiers)])
-
-
 def tier_scan(stack, patterns, plen):
-    """The dense tier scan (packed-DNA tables only): the CUDA kernel on
-    a CUDA device, its plain version ``ref.tier_scan_ref`` elsewhere.
-    Returns (count, less, matches, first_g) int32 (T, B) — the
-    ``tier_scan.fused_tier_scan`` contract."""
-    W = patterns.shape[1]
-    args = (patterns.T, plen.to(torch.int32), tier_windows(stack, W),
-            stack.sa, tier_meta(stack))
+    """The tier scan kernel's path (packed-DNA tables only): the CUDA
+    kernel on a CUDA device, its plain 17-ary search
+    ``tier_scan.tier_scan_plain`` elsewhere.  Both read the stacked
+    packed text and ``sa`` directly.  Returns (count, less, matches,
+    first_g) int32 (T, B) — the ``tier_scan.fused_tier_scan`` contract."""
+    args = (patterns.T, plen.to(torch.int32), stack.text_packed, stack.sa,
+            stack.pad_cnt, tier_meta(stack))
     if patterns.is_cuda:
         return _tier.tier_scan_cuda(*args)
-    return ref.tier_scan_ref(*args)
+    return _tier.tier_scan_plain(*args)
 
 
 def _use_kernels(stack, patterns) -> bool:

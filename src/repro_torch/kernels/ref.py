@@ -3,11 +3,15 @@
 ``tier_scan_ref``, ``tablet_scan_ref``); the backward search's is
 ``fm_scan.search_syms``.  They run on any device: the CPU tests hold
 them against the Pallas kernels, and the chip check holds each CUDA
-kernel against them on the card."""
+kernel against them on the card.  ``tier_scan_ref`` and
+``tablet_scan_ref`` are the TPU kernels' dense (query x row) scans; the
+CUDA kernels search instead, and their own algorithm's plain versions
+are ``tier_scan.tier_scan_plain`` and ``tablet_scan.tablet_scan_plain``."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import codec
 from repro_torch.core import query as Q
 from repro_torch.core.codec import MASK32, words_i64, words_u32
 
@@ -34,9 +38,19 @@ def pattern_compare_ref(windows_t, patterns_t, plen, pos, *, n_real: int):
     return (lt.to(torch.int8), (lt | eq).to(torch.int8), eq.to(torch.int8))
 
 
+def tier_windows(stack, n_words: int) -> torch.Tensor:
+    """(T, W, R) uint32: the packed window of every stacked row, the
+    input of :func:`tier_scan_ref` (the kernel reads the packed text)."""
+    return torch.stack([
+        codec.extract_window(stack.text_packed[t], stack.sa[t], n_words).T
+        for t in range(stack.num_tiers)])
+
+
 def tier_scan_ref(patterns_t, plen, windows_t, sa, meta, *,
                   row_chunk: int = 4096):
-    """Dense (T, BQ, BR) compare + straddle masks; shapes as in
+    """Dense (T, BQ, BR) compare + straddle masks, the TPU kernel's
+    algorithm: patterns_t (W, BQ) uint32, plen (BQ,), windows_t (T, W, BR)
+    uint32 (:func:`tier_windows`), sa (T, BR), meta (T, 8) as in
     ``tier_scan.tier_scan_cuda``; returns four (T, BQ) int32.  Rows are
     taken ``row_chunk`` at a time so memory stays bounded; sums and
     minimums are the same in any order."""

@@ -1,15 +1,24 @@
-"""Dense tablet range scan — the port of ``repro.kernels.tablet_scan``.
+"""Tablet range scan — the port of ``repro.kernels.tablet_scan``.
 
 Compares a batch of patterns against consecutive sorted suffix rows and
 returns, per pattern: ``count`` (matching rows), ``less`` (rows strictly
 before the pattern; over a whole sorted table this is the lower bound)
 and ``first_row`` (the smallest matching row, ``2**30`` when none).
 
-:func:`tablet_scan_cuda` is the hand-written kernel
-(``csrc/tablet_scan.cu``); its plain version is ``ref.tablet_scan_ref``
-and ``kernels.ops.tablet_scan`` picks one by the tensor's device.  The
-kernel bound-checks its ragged edges, so unlike the Pallas kernel it
-needs no padding to a block multiple.
+Contract: the rows are consecutive sorted suffix rows (a whole store or
+a slice of one), as the TPU kernel's docstring requires.  Over them
+"row < pattern" is monotone, so ``less`` is the lower bound ``lb``,
+``count`` is ``ub - lb`` and ``first_row`` is ``lb`` where ``ub > lb``
+(``kernels.kary``).
+
+* :func:`tablet_scan_cuda` — the hand-written kernel
+  (``csrc/tablet_scan.cu``): one warp per query runs the 17-ary search
+  of both bounds;
+* :func:`tablet_scan_plain` — the same 17-ary search in plain PyTorch,
+  what ``kernels.ops.tablet_scan`` runs on a CPU tensor.
+
+``ref.tablet_scan_ref`` is the dense (query x row) plain version, the
+TPU kernel's own algorithm, kept as the yardstick.
 """
 from __future__ import annotations
 
@@ -17,10 +26,36 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, kary
 
 BIG = 2**30     # "no match" sentinel for first_row
-MAX_WORDS = 16  # shared-memory staging: W <= 16 words (256 bases)
+MAX_WORDS = 16  # pattern words a warp stages in shared memory (256 bases)
+
+
+def _outputs(lb, ub):
+    count = ub - lb
+    first = torch.where(count > 0, lb, BIG)
+    return tuple(x.to(torch.int32) for x in (count, lb, first))
+
+
+def tablet_scan_plain(patterns_t, plen, windows_t, pos, *, n_real: int,
+                      trace=None, arity: int = kary.ARITY):
+    """The kernel's 17-ary search in plain PyTorch; arguments and
+    results as :func:`tablet_scan_cuda`.  ``trace`` and ``arity`` as in
+    ``kary.search`` (the rows the kernel probes; 2 for a binary
+    search)."""
+    R = int(windows_t.shape[1])
+    patt = patterns_t.T
+    pos = pos.to(torch.int64)
+    words = windows_t.view(torch.int32)     # CUDA cannot index uint32
+
+    def probe(rows):
+        win = words[:, rows].permute(1, 2, 3, 0)           # (2, B, 16, W)
+        return kary.compare(win, pos[rows], patt, plen, n_real)
+
+    lb, ub = kary.search(R, int(patt.shape[0]), probe,
+                         device=patterns_t.device, trace=trace, arity=arity)
+    return _outputs(lb, ub)
 
 
 def tablet_scan_cuda(patterns_t: torch.Tensor, plen: torch.Tensor,
@@ -51,10 +86,9 @@ def tablet_scan_cuda(patterns_t: torch.Tensor, plen: torch.Tensor,
     wt = windows_t.contiguous()
     plen = plen.to(torch.int32).contiguous()
     pos = pos.to(torch.int32).contiguous()
-    count = torch.zeros(B, dtype=torch.int32, device=dev)
-    less = torch.zeros_like(count)
-    first = torch.full((B,), BIG, dtype=torch.int32, device=dev)
-    if B == 0 or R == 0:
+    count, less, first = (torch.empty(B, dtype=torch.int32, device=dev)
+                          for _ in range(3))
+    if B == 0:
         return count, less, first
     fn = _build.load("tablet_scan").tablet_scan_launch
     P, I = ctypes.c_void_p, ctypes.c_int

@@ -11,12 +11,28 @@ matches  raw prefix-match run length (bounds NOT applied)
 first_g  minimum owned GLOBAL start position (``BIG`` when count == 0)
 ====== =====================================================================
 
-Two implementations with that contract:
+Three implementations with that contract:
 
 * :func:`fused_tier_scan` — plain PyTorch: a batched binary search per
   tier plus :func:`_owned_tail`, the production path on the CPU;
-* :func:`tier_scan_cuda` — the hand-written dense scan
-  (``csrc/tier_scan.cu``), the path on a CUDA device for packed DNA.
+* :func:`tier_scan_cuda` — the hand-written kernel (``csrc/tier_scan.cu``),
+  the path on a CUDA device for packed DNA: one warp per (query, tier)
+  runs the 17-ary search of both bounds over the stacked packed text and
+  ``sa``, then the 4 warps of its block apply the straddle rule over
+  each of the block's match runs, past the tier's padding rows
+  (:func:`pad_prefix`);
+* :func:`tier_scan_plain` — that kernel's algorithm in plain PyTorch
+  (``kernels.kary`` plus the run scan), what ``kernels.ops.tier_scan``
+  runs on a CPU tensor.
+
+Contract of the last two: each tier's rows ``[0, n_rows)`` are sorted
+suffix rows (rows past ``n_rows`` are bucket padding and never read), so
+``less`` is the lower bound ``lb``, ``matches`` is ``ub - lb`` and the
+rows ``[lb, ub)`` are exactly the matching ones; those of them that are
+padding (position past the tier's own text) are never owned.
+``ref.tier_scan_ref``
+is the dense (tier, query, row) plain version, the TPU kernel's own
+algorithm, kept as the yardstick.
 """
 from __future__ import annotations
 
@@ -24,8 +40,9 @@ import ctypes
 
 import torch
 
+from repro_torch.core import codec
 from repro_torch.core import query as Q
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, kary
 
 BIG = 2**30     # "no match" sentinel for first_g
 
@@ -148,53 +165,125 @@ def merge_tier_results(base, tier_count, tier_first):
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernel: dense scan over (tier, query, row)
+# The 17-ary search per tier + the straddle rule over the match run
 # ---------------------------------------------------------------------------
-MAX_WORDS = 16      # shared-memory staging: W <= 16 words (256 bases)
+MAX_WORDS = 16      # pattern words a warp stages in shared memory
+
+
+def _run_scan(sa_t, lb, ub, plen, offset, lo_b, hi_b):
+    """(count, first_g) int64 (B,): the straddle rule over every query's
+    rows ``[lb, ub)`` of one tier, flattened into one pass."""
+    B = lb.shape[0]
+    dev = lb.device
+    length = ub - lb
+    seg = torch.repeat_interleave(torch.arange(B, device=dev), length)
+    start = torch.cumsum(length, 0) - length
+    k = torch.arange(seg.shape[0], device=dev)
+    g = sa_t[lb[seg] + k - start[seg]] + offset
+    e = g + plen.to(torch.int64)[seg]
+    owned = (e > lo_b) & (e <= hi_b)
+    count = torch.zeros(B, dtype=torch.int64, device=dev).scatter_add_(
+        0, seg, owned.to(torch.int64))
+    first = torch.full((B,), BIG, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, seg, torch.where(owned, g, BIG), "amin")
+    return count, first
+
+
+def pad_prefix(pad_cnt):
+    """(T,) int64: per tier, the rows ``[0, n)`` that are all padding
+    (never owned) and that the kernel's sweep skips: ``n = pad_cnt[t,
+    -1]``, every such row of the tier, when ``pad_cnt[t, n] == n``; else
+    0.  Padding holds the smallest symbol, so its suffixes sort first."""
+    pc = pad_cnt.to(torch.int64)
+    n = pc[:, -1]
+    return torch.where(pc.gather(1, n[:, None])[:, 0] == n, n, 0)
+
+
+def tier_scan_plain(patterns_t, plen, text_packed, sa, pad_cnt, meta, *,
+                    trace=None, arity: int = kary.ARITY):
+    """The kernel's algorithm in plain PyTorch; arguments and results as
+    :func:`tier_scan_cuda`.  With a ``trace`` list, one list per tier of
+    the rows the kernel probes is appended to it; ``arity`` as in
+    ``kary.search`` (2 for a binary search)."""
+    W, B = patterns_t.shape
+    T, R = sa.shape
+    patt = patterns_t.T
+    skip = pad_prefix(pad_cnt).tolist()
+    outs = []
+    for t in range(T):
+        n_real, n_rows, offset, lo_b, hi_b = (int(v) for v in
+                                              meta[t, :5].tolist())
+        n_rows = max(0, min(n_rows, R))
+        sa_t = sa[t].to(torch.int64)
+
+        def probe(rows, sa_t=sa_t, text_t=text_packed[t], n_real=n_real):
+            pos = sa_t[rows]
+            win = codec.extract_window(text_t, pos, W)
+            return kary.compare(win, pos, patt, plen, n_real)
+
+        tr = None if trace is None else []
+        lb, ub = kary.search(n_rows, B, probe, device=patt.device, trace=tr,
+                             arity=arity)
+        if trace is not None:
+            trace.append(tr)
+        start = lb.clamp(min=skip[t]).minimum(ub)
+        count, first = _run_scan(sa_t, start, ub, plen, offset, lo_b, hi_b)
+        outs.append((count, lb, ub - lb, first))
+    return tuple(torch.stack([o[i] for o in outs]).to(torch.int32)
+                 for i in range(4))
 
 
 def tier_scan_cuda(patterns_t: torch.Tensor, plen: torch.Tensor,
-                   windows_t: torch.Tensor, sa: torch.Tensor,
-                   meta: torch.Tensor):
+                   text_packed: torch.Tensor, sa: torch.Tensor,
+                   pad_cnt: torch.Tensor, meta: torch.Tensor):
     """The ``tier_scan_pallas`` contract on CUDA.  patterns_t: (W, B)
-    uint32; plen: (B,) int32; windows_t: (T, W, R) uint32 packed windows
-    of every tier's sorted rows; sa: (T, R) int32 local positions; meta:
-    (T, 8) int32 rows ``[n_real, n_rows, offset, lo, hi, 0, 0, 0]``.
-    Returns (count, less, matches, first_g) int32 (T, B)."""
-    for name, x in (("patterns_t", patterns_t), ("windows_t", windows_t)):
-        if not x.is_cuda or x.dtype != torch.uint32:
-            raise ValueError(f"{name} must be a uint32 CUDA tensor")
-    W, B = patterns_t.shape
-    T, W2, R = windows_t.shape
-    if W2 != W or tuple(sa.shape) != (T, R) or tuple(meta.shape) != (T, 8) \
-            or tuple(plen.shape) != (B,):
+    uint32; plen: (B,) int32; text_packed: (T, n_words) uint32, every
+    tier's packed text (words past a tier's end read 0); sa: (T, R)
+    int32 local positions, each tier's rows ``[0, n_rows)`` sorted;
+    pad_cnt: (T, R + 1) int32, the ``TierStack`` prefix counts of rows
+    whose position lies at or past ``hi - offset`` (the sweep skips them,
+    :func:`pad_prefix`); meta: (T, 8) int32 rows ``[n_real, n_rows,
+    offset, lo, hi, 0, 0, 0]``.  Returns (count, less, matches, first_g)
+    int32 (T, B)."""
+    for name, x in (("patterns_t", patterns_t), ("text_packed", text_packed)):
+        if not x.is_cuda or x.dtype != torch.uint32 or x.dim() != 2:
+            raise ValueError(f"{name} must be a 2-D uint32 CUDA tensor")
+    W, B = (int(d) for d in patterns_t.shape)
+    T, R = (int(d) for d in sa.shape)
+    if text_packed.shape[0] != T or tuple(meta.shape) != (T, 8) \
+            or tuple(pad_cnt.shape) != (T, R + 1) or tuple(plen.shape) != (B,):
         raise ValueError(
             f"shape mismatch: patterns_t {tuple(patterns_t.shape)}, "
-            f"windows_t {tuple(windows_t.shape)}, sa {tuple(sa.shape)}, "
-            f"meta {tuple(meta.shape)}, plen {tuple(plen.shape)}")
+            f"text_packed {tuple(text_packed.shape)}, sa {tuple(sa.shape)}, "
+            f"pad_cnt {tuple(pad_cnt.shape)}, meta {tuple(meta.shape)}, "
+            f"plen {tuple(plen.shape)}")
     if W > MAX_WORDS:
         raise ValueError(f"{W} pattern words > {MAX_WORDS}: the kernel "
                          f"stages at most {MAX_WORDS} in shared memory")
+    for name, x in (("plen", plen), ("sa", sa), ("pad_cnt", pad_cnt),
+                    ("meta", meta)):
+        if not x.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
     dev = patterns_t.device
     pt = patterns_t.contiguous()
-    wt = windows_t.contiguous()
+    text = text_packed.contiguous()
     sa = sa.to(torch.int32).contiguous()
+    pad_cnt = pad_cnt.to(torch.int32).contiguous()
     meta = meta.to(torch.int32).contiguous()
     plen = plen.to(torch.int32).contiguous()
-    count = torch.zeros((T, B), dtype=torch.int32, device=dev)
-    less = torch.zeros_like(count)
-    matches = torch.zeros_like(count)
-    first = torch.full((T, B), BIG, dtype=torch.int32, device=dev)
-    if T == 0 or B == 0 or R == 0:
-        return count, less, matches, first
+    outs = tuple(torch.empty((T, B), dtype=torch.int32, device=dev)
+                 for _ in range(4))
+    if T == 0 or B == 0:
+        return outs
     fn = _build.load("tier_scan").tier_scan_launch
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, P, P, I, I, I, I, P, P, P, P, P]
+    fn.argtypes = [P, P, P, ctypes.c_longlong, P, P, P, I, I, I, I,
+                   P, P, P, P, P]
     fn.restype = I
-    _build.check(fn(_build.ptr(pt), _build.ptr(plen), _build.ptr(wt),
-                    _build.ptr(sa), _build.ptr(meta), T, B, W, R,
-                    _build.ptr(count), _build.ptr(less),
-                    _build.ptr(matches), _build.ptr(first),
+    _build.check(fn(_build.ptr(pt), _build.ptr(plen), _build.ptr(text),
+                    int(text.shape[1]), _build.ptr(sa), _build.ptr(pad_cnt),
+                    _build.ptr(meta), T, B, W, R,
+                    *(_build.ptr(o) for o in outs),
                     _build.stream_of(pt)), "tier_scan")
     _build.LAUNCHES["tier_scan"] += 1
-    return count, less, matches, first
+    return outs

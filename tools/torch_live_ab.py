@@ -10,12 +10,15 @@ Each workload runs twice: ``cold`` (the first pass, first launches
 included, as chip_smoke measures it) and ``warm`` (result cache cleared,
 kernels loaded).  Run from anywhere::
 
-    python3 tools/torch_live_ab.py OLD_ROOT NEW_ROOT
+    python3 tools/torch_live_ab.py [--rounds N] OLD_ROOT NEW_ROOT
 
 Each ROOT is the root of a checkout whose ``src/`` holds ``repro_torch``;
-each builds its own kernels under its ``build/``.  Prints one JSON line
-per run, then one ``[ab]`` line per (phase, pass) with both checkouts'
-mean queries/s and p50 ms.  Imports neither jax nor the JAX package.
+each builds its own kernels under its ``build/``.  ``--rounds N``
+repeats A B B A N times (default 1).  Prints one JSON line per run, then
+one ``[ab]`` line per (phase, pass): each checkout's median queries/s
+with its quartiles, the mean p50 ms, and the pairs the new checkout won
+(run i of A against run i of B, so each round gives two pairs, one with
+each checkout first).  Imports neither jax nor the JAX package.
 """
 from __future__ import annotations
 
@@ -82,14 +85,19 @@ def run_one(root: str) -> int:
 
 
 def main(argv: list[str]) -> int:
-    if len(argv) == 3 and argv[1] == "--one":
-        return run_one(argv[2])
-    if len(argv) != 3:
+    import numpy as np
+    args = argv[1:]
+    if len(args) == 2 and args[0] == "--one":
+        return run_one(args[1])
+    rounds = 1
+    if len(args) == 4 and args[0] == "--rounds":
+        rounds, args = int(args[1]), args[2:]
+    if len(args) != 2 or rounds < 1:
         print(__doc__, file=sys.stderr)
         return 2
-    a, b = (os.path.abspath(r) for r in argv[1:])
+    a, b = (os.path.abspath(r) for r in args)
     runs: dict[str, list[dict]] = {a: [], b: []}
-    for root in (a, b, b, a):
+    for root in (a, b, b, a) * rounds:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                                "--one", root], capture_output=True,
                               text=True, timeout=900)
@@ -103,12 +111,17 @@ def main(argv: list[str]) -> int:
         runs[root].append(rec)
     for ph in PHASES:
         line = [f"[ab] {ph}"]
+        qps = {}
         for name, root in (("old", a), ("new", b)):
             recs = [r[ph] for r in runs[root]]
-            qps = sum(r["queries_per_s"] for r in recs) / len(recs)
+            qps[name] = np.array([r["queries_per_s"] for r in recs])
+            q1, med, q3 = np.percentile(qps[name], [25, 50, 75])
             p50 = sum(r["p50_ms"] for r in recs) / len(recs)
-            line.append(f"{name}_queries_per_s={qps:.1f} "
+            line.append(f"{name}_queries_per_s_median={med:.1f} "
+                        f"{name}_q1={q1:.1f} {name}_q3={q3:.1f} "
                         f"{name}_p50_ms={p50:.4f}")
+        wins = int((qps["new"] > qps["old"]).sum())
+        line.append(f"new_won={wins}/{len(qps['new'])}")
         print(" ".join(line), flush=True)
     return 0
 
