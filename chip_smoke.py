@@ -34,10 +34,12 @@ through the public entry points at chromosome scale:
                  its result held against its plain PyTorch version(s)
                  on inputs taken from that run; a sample of counts is
                  checked against a numpy brute-force scan of the text.
-                 The two searches (``tablet_scan``, ``tier_scan``) also
-                 print their rounds and probes (``[tablet]``,
-                 ``[tiers]``), and ``[ptxas]`` lines give every
-                 kernel's registers, shared memory and spills.
+                 The three searches (``bounded_search``, ``tablet_scan``,
+                 ``tier_scan``) also print their rounds and probes
+                 (``[search]``, ``[tablet]``, ``[tiers]``), ``[fm]`` the
+                 backward search's ranks and words, and ``[ptxas]``
+                 lines give every kernel's registers, shared memory and
+                 spills.
 
 It prints one JSON line of per-kernel numbers (``ms``: time per call as
 the host issues them; ``device_ms``: device time of launches queued back
@@ -164,6 +166,33 @@ def probed_rows(torch, trace):
     return uniq, most, rounds, int(rows.numel()), int(words.sum())
 
 
+def text_bytes(torch, pos, most, text_packed):
+    """4 B per distinct packed text word that early-exit compares read
+    of the suffixes at ``pos``, ``most[i]`` window words of the suffix at
+    ``pos[i]`` (words ``pos // 16 ..``, one more when ``pos % 16``
+    shifts the window across a word)."""
+    pos = pos.to(torch.int64)
+    n_words = int(text_packed.shape[0])
+    span = most + (((pos % 16) != 0) & (most > 0)).to(torch.int64)
+    mark = torch.zeros(n_words, dtype=torch.bool, device=pos.device)
+    for j in range(int(span.max()) if span.numel() else 0):
+        idx = (pos // 16 + j)[span > j]
+        mark[idx[idx < n_words]] = True
+    return 4 * int(mark.sum())
+
+
+def search_traffic(torch, trace, sa, text_packed):
+    """Bytes a traced search of the sorted rows ``sa`` of one store
+    reads (each read once): 4 per distinct probed row (its ``sa``
+    entry) + the text words its compares read (:func:`text_bytes`);
+    plus the rounds, the probes and the words compared in all.  From a
+    binary search's trace this is what the function needs."""
+    uniq, most, rounds, probes, words = probed_rows(torch, trace)
+    return (4 * int(uniq.numel()) + text_bytes(torch, sa[uniq], most,
+                                               text_packed),
+            rounds, probes, words)
+
+
 def tablet_traffic(torch, trace):
     """Bytes a traced tablet search of this run's data reads (each read
     once): 4 per distinct probed row (its position) + 4 per window word
@@ -185,7 +214,6 @@ def tier_traffic(torch, traces, sa, text_packed, run_lo, run_hi):
     words compared in all.  Binary and 17-ary traces as in
     :func:`tablet_traffic`."""
     T, R = sa.shape
-    n_words = int(text_packed.shape[1])
     dev = sa.device
     n_bytes, rounds, probes, words = 0, 0, 0, 0
     for t in range(T):
@@ -198,13 +226,8 @@ def tier_traffic(torch, traces, sa, text_packed, run_lo, run_hi):
         cover.index_add_(0, ub, -torch.ones_like(ub))
         touched = torch.cumsum(cover, 0)[:R] > 0
         touched[uniq] = True
-        pos = sa[t, uniq].to(torch.int64)
-        span = most + (((pos % 16) != 0) & (most > 0)).to(torch.int64)
-        mark = torch.zeros(n_words, dtype=torch.bool, device=dev)
-        for j in range(int(span.max()) if span.numel() else 0):
-            idx = (pos // 16 + j)[span > j]
-            mark[idx[idx < n_words]] = True
-        n_bytes += 4 * int(touched.sum()) + 4 * int(mark.sum())
+        n_bytes += 4 * int(touched.sum()) + text_bytes(
+            torch, sa[t, uniq], most, text_packed[t])
     return n_bytes, rounds, probes, words
 
 
@@ -306,6 +329,7 @@ def main() -> int:
                                                  tablet_scan_plain)
     from repro_torch.kernels.pack2bit import pack2bit_cuda
     from repro_torch.kernels.pattern_scan import (bounded_search_cuda,
+                                                  bounded_search_plain,
                                                   pattern_compare_cuda)
 
     failures: list[str] = []
@@ -520,18 +544,41 @@ def main() -> int:
         TEXT_LEN + 4 * n_words, 2 * 16 * n_words,
         library_ms=cuda_ms(torch, lambda: (lanes << shifts).sum(dim=1), 5))
 
-    # bounded_search on the base store, first batch of the workload
-    steps = Q.search_steps(store.n_pad)
-    lb, ub = bounded_search_cuda(store.sa, store.text_packed, store.n_real,
-                                 patt, plen, store.n_pad)
+    # bounded_search on the base store, first batch of the workload: held
+    # against the plain binary search ([linear]'s plb, pub) and the
+    # plain 17-ary version.  Bytes: what the binary search reads (traced
+    # with arity=2, each sa row and text word once), the pattern words
+    # in use, plen and the outputs; operations: ~4 per word compared.
+    used_words = int(((plen.to(torch.int64) + 15) // 16).sum())
+    sargs = (store.sa, store.text_packed, store.n_real, patt, plen,
+             store.n_pad)
+    lb, ub = bounded_search_cuda(*sargs)
+    trace, bin_trace = [], []
+    kary_bounds = bounded_search_plain(*sargs, trace=trace)
+    bin_bounds = bounded_search_plain(*sargs, trace=bin_trace, arity=2)
+    s_bytes, s_bin_rounds, s_bin_probes, s_bin_words = search_traffic(
+        torch, bin_trace, store.sa, store.text_packed)
+    _, s_rounds, s_probes, s_words = search_traffic(
+        torch, trace, store.sa, store.text_packed)
+    fixed = 4 * used_words + 4 * B + 2 * B * 4
     row("bounded_search", "src/repro_torch/kernels/csrc/pattern_scan.cu",
         "src/repro/kernels/pattern_scan.py:55",
-        max_abs_err(torch, [lb, ub], [plb, pub]),
-        lambda: bounded_search_cuda(
-            store.sa, store.text_packed, store.n_real, patt, plen,
-            store.n_pad), 20,
+        max(max_abs_err(torch, [lb, ub], [plb, pub]),
+            max_abs_err(torch, [lb, ub], kary_bounds),
+            max_abs_err(torch, bin_bounds, [plb, pub])),
+        lambda: bounded_search_cuda(*sargs), 20,
         cuda_ms(torch, lambda: Q.search_bounds_plain(store, patt, plen), 2),
-        2 * B * steps * 12 + B * W * 4 + 3 * B * 4, 2 * B * steps * W)
+        s_bytes + fixed, 4 * s_bin_words, rounds=s_rounds,
+        binary_rounds=s_bin_rounds,
+        kary_plain_ms=cuda_ms(torch, lambda: bounded_search_plain(*sargs),
+                              2))
+    check(s_rounds <= kary.max_rounds(store.n_pad),
+          "bounded_search ends within floor(log17 n_pad) + 1 rounds")
+    print(f"[search] rows={store.n_pad} rounds={s_rounds} "
+          f"max_rounds={kary.max_rounds(store.n_pad)} probes={s_probes} "
+          f"words={s_words} binary_rounds={s_bin_rounds} "
+          f"binary_probes={s_bin_probes} binary_words={s_bin_words} "
+          f"bound_bytes={s_bytes + fixed}", flush=True)
 
     # pattern_compare on the suffixes at those lower bounds
     pos = store.sa[lb.clamp(0, store.n_pad - 1).to(torch.int64)]
@@ -575,7 +622,6 @@ def main() -> int:
     # the pattern words in use, plen, meta, two pad_cnt entries per tier
     # and the outputs; operations: ~4 per word compared.  The 17-ary
     # search's own reads are counted apart (kary_bytes).
-    used_words = int(((plen.to(torch.int64) + 15) // 16).sum())
     fixed = 4 * used_words + 4 * B + 40 * T + 4 * T * B * 4
     less = got[1].to(torch.int64)
     run_hi = less + got[2]
@@ -649,24 +695,25 @@ def main() -> int:
           f"kernel_slice_ms={slice_ms:.4f} dense_plain_slice_ms="
           f"{dense_ms:.4f}", flush=True)
 
-    # fm_scan on the frozen table's index, first batch of the workload
+    # fm_scan on the frozen table's index, first batch of the workload:
+    # the kernel reads the packed patterns; its plain version
+    # (backward_search) steps search_syms over the (16 W, B) plan
     fa = frozen.fm.arrays
     fm_steps = W * 16
     syms = FM.syms_from_packed(patt, plen, fm_steps)
-    meta = FM.fm_meta(fa)
-    got = FM.fm_scan_cuda(syms, fa.bwt, fa.occ, meta)
+    got = FM.fm_scan_cuda(patt, plen, fa.bwt, fa.occ, fa.meta)
     want = FM.search_syms(fa, syms)
-    # bytes: 4 per rank (Occ entry) + 4 per BWT word read, the plan, the
-    # outputs and meta; operations: ~9 per word (xor, not, and, shift,
-    # and, mask, popcount, add)
+    # bytes: 4 per rank (Occ entry) + 4 per BWT word read, the packed
+    # patterns, plen, the outputs and meta; operations: ~9 per word (xor,
+    # not, and, shift, and, mask, popcount, add)
     ranks, words, tlo, thi = fm_traffic(torch, FM, fa, syms)
     check(torch.equal(tlo, got[0]) and torch.equal(thi, got[1]),
           "the fm_scan traffic count followed the kernel's search")
     row("fm_scan", "src/repro_torch/kernels/csrc/fm_scan.cu",
         "src/repro/kernels/fm_scan.py:260", max_abs_err(torch, got, want),
-        lambda: FM.fm_scan_cuda(syms, fa.bwt, fa.occ, meta), 50,
-        cuda_ms(torch, lambda: FM.search_syms(fa, syms), 1),
-        4 * ranks + 4 * words + fm_steps * B * 4 + 2 * B * 4 + 32,
+        lambda: FM.fm_scan_cuda(patt, plen, fa.bwt, fa.occ, fa.meta), 50,
+        cuda_ms(torch, lambda: FM.backward_search(fa, patt, plen), 1),
+        4 * ranks + 4 * words + B * W * 4 + B * 4 + 2 * B * 4 + 32,
         9 * words)
     lo, hi = got
     print(f"[fm] steps={fm_steps} active_steps={int(plen.sum())} "

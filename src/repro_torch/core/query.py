@@ -1,12 +1,13 @@
 """Pattern-match queries over a TabletStore — the single-device part of
 ``repro.core.query``.
 
-A scan is a batched lower/upper-bound binary search over the sorted
-suffix array.  On a CUDA device a packed-DNA batch runs all rounds of
-both bounds in ONE launch of the ``bounded_search`` kernel
-(``kernels/csrc/pattern_scan.cu``); everywhere else (the CPU, token
-tables) the plain PyTorch search below runs, one compare per round,
-mirroring the reference line by line.  Both return the same bounds.
+A scan is a batched lower/upper-bound search over the sorted suffix
+array.  On a CUDA device a packed-DNA batch finds both bounds in ONE
+launch of the ``bounded_search`` kernel (``kernels/csrc/
+pattern_scan.cu``, a 17-ary search, one warp per query); everywhere
+else (the CPU, token tables) the plain PyTorch binary search below
+runs, one compare per round, mirroring the reference line by line.
+Both return the same bounds, the exact partition points.
 
 Counts, ranks and positions are int32, as the reference's (JAX without
 x64), so overflow behaves the same.

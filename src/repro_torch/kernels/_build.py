@@ -31,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-Xptxas", "-v"]
 
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], object] = {}
 _lock = threading.Lock()
 
 # launches per kernel; each wrapper adds one where it launches, so a run
@@ -107,6 +108,19 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build((name,))[name]))
             _libs[name] = lib
         return lib
+
+
+def launcher(name: str, symbol: str, argtypes):
+    """The C launcher ``symbol`` of ``csrc/<name>.cu``, its argument
+    types (``ctypes.c_void_p`` for pointers and the stream) and its
+    ``int`` return (a ``cudaError_t``) set once, when first asked for."""
+    fn = _fns.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _fns[(name, symbol)] = fn
+    return fn
 
 
 def check(status: int, what: str) -> None:

@@ -79,9 +79,9 @@ __device__ __forceinline__ int splitter(int lo, int n, int j) {
 // its first c splitters and the bound lies in (splitter c-1, splitter c].
 // Each round cuts an interval of n rows to at most n / 17, so a search
 // takes floor(log17 n) + 1 rounds at most; both halves loop until empty.
-// The result is the exact partition point, as the binary search's
-// (bounded_search_kernel) is.  probe(row, upper) returns pred for one
-// row.
+// The result is the exact partition point, as the plain binary
+// search's (query.search_bounds_plain) is.  probe(row, upper) returns
+// pred for one row.
 template <typename Probe>
 __device__ __forceinline__ void warp_kary_bounds(int n_rows, Probe probe,
                                                 int& lb, int& ub) {

@@ -13,8 +13,11 @@ packed BWT.  Conventions are the reference's:
   + an in-block popcount over ``0x55555555``; the sentinel row stores
   dummy symbol 0 and rank subtracts it;
 * tokens: int32 BWT codes, per-symbol checkpoints, compare-equal sums;
-* pattern symbols are pre-extracted into a ``(steps, B)`` plan (-1 =
-  step inactive), the schedule both the plain search and the kernel run.
+* the schedule is the reference's ``(steps, B)`` symbol plan (-1 =
+  step inactive): step t takes pattern position ``plen - 1 - t``.  The
+  plain search reads it from :func:`syms_from_packed` /
+  :func:`syms_from_codes`; the kernel takes the same symbols straight
+  from the packed patterns.
 
 Two implementations of the backward search:
 
@@ -23,7 +26,9 @@ Two implementations of the backward search:
   popcount and cannot shift ``uint32``, so words are widened to int64
   and counted by SWAR;
 * :func:`fm_scan_cuda` — the hand-written kernel ``csrc/fm_scan.cu``
-  (packed DNA on a CUDA device), the ``fm_scan_pallas`` contract.
+  (packed DNA on a CUDA device): the ``fm_scan_pallas`` contract over
+  packed patterns, whose plain version is :func:`backward_search`
+  (``search_syms`` over ``syms_from_packed(patt, plen, 16 * W)``).
 
 :func:`lf_walk` (text positions of SA$ rows through the sampled SA) is
 plain PyTorch on the index's device.
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -67,6 +73,11 @@ class FMArrays:
     @property
     def device(self) -> torch.device:
         return self.occ.device
+
+    @functools.cached_property
+    def meta(self) -> torch.Tensor:
+        """:func:`fm_meta` of this index, built once."""
+        return fm_meta(self)
 
 
 def _words(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -272,18 +283,31 @@ def fm_meta(fa: FMArrays) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernel: backward search, one thread per query
+# CUDA kernel: backward search over packed patterns, one thread per query
 # ---------------------------------------------------------------------------
-def fm_scan_cuda(syms: torch.Tensor, bwt: torch.Tensor, occ: torch.Tensor,
-                 meta: torch.Tensor):
-    """The ``fm_scan_pallas`` contract on CUDA.  syms: (steps, B) int32
-    backward-order symbol plan (-1 = inactive; no padding needed); bwt:
-    (Wb,) uint32 packed BWT; occ: (nblk + 1, 4) int32 checkpoints; meta:
-    (8,) int32 ``[C0..C3, sent_row, rows, 0, 0]``.  Returns (lo, hi)
-    int32 (B,)."""
-    if not syms.is_cuda or syms.dtype != torch.int32 or syms.dim() != 2:
-        raise ValueError(f"syms must be a (steps, B) int32 CUDA tensor, got "
-                         f"{syms.dtype} {tuple(syms.shape)} on {syms.device}")
+MAX_WORDS = 16          # pattern words the kernel stages per query
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def fm_scan_cuda(patterns: torch.Tensor, plen: torch.Tensor,
+                 bwt: torch.Tensor, occ: torch.Tensor, meta: torch.Tensor):
+    """The ``fm_scan_pallas`` contract on CUDA, over packed patterns in
+    place of the symbol plan.  patterns: (B, W) uint32, W <= 16; plen:
+    (B,); bwt: (4 * nblk,) uint32 packed BWT (16-byte aligned); occ:
+    (nblk + 1, 4) int32 checkpoints; meta: (8,) int32 ``[C0..C3,
+    sent_row, rows, 0, 0]`` (``FMArrays.meta``).  Returns (lo, hi) int32
+    (B,), exactly :func:`backward_search`'s."""
+    if not patterns.is_cuda or patterns.dtype != torch.uint32 or \
+            patterns.dim() != 2:
+        raise ValueError(f"patterns must be a (B, W) uint32 CUDA tensor, "
+                         f"got {patterns.dtype} {tuple(patterns.shape)} on "
+                         f"{patterns.device}")
+    B, W = (int(d) for d in patterns.shape)
+    if W > MAX_WORDS:
+        raise ValueError(f"{W} pattern words > {MAX_WORDS}: the kernel "
+                         f"stages at most {MAX_WORDS} per query")
+    if not plen.is_cuda or tuple(plen.shape) != (B,):
+        raise ValueError(f"plen must be a ({B},) CUDA tensor")
     if not bwt.is_cuda or bwt.dtype != torch.uint32 or bwt.dim() != 1:
         raise ValueError("bwt must be a 1-D uint32 CUDA tensor")
     if not occ.is_cuda or occ.dtype != torch.int32 or occ.dim() != 2 \
@@ -294,24 +318,26 @@ def fm_scan_cuda(syms: torch.Tensor, bwt: torch.Tensor, occ: torch.Tensor,
             tuple(meta.shape) != (8,):
         raise ValueError("meta must be an (8,) int32 CUDA tensor")
     nblk = int(occ.shape[0]) - 1
+    # every block the kernel reads, [0, nblk), lies inside the BWT
     if int(bwt.shape[0]) < nblk * WPB or nblk < 1:
         raise ValueError(f"bwt has {bwt.shape[0]} words for {nblk} "
                          f"checkpoint blocks of {WPB}")
-    steps, B = (int(d) for d in syms.shape)
-    syms = syms.contiguous()
     bwt = bwt.contiguous()
+    if bwt.data_ptr() % 16:
+        raise ValueError("bwt must be 16-byte aligned: the kernel reads a "
+                         "block's 4 words as one vector")
+    patterns = patterns.contiguous()
+    plen = plen.to(torch.int32).contiguous()
     occ = occ.contiguous()
-    lo = torch.empty(B, dtype=torch.int32, device=syms.device)
-    hi = torch.empty(B, dtype=torch.int32, device=syms.device)
+    lo = torch.empty(B, dtype=torch.int32, device=patterns.device)
+    hi = torch.empty(B, dtype=torch.int32, device=patterns.device)
     if B == 0:
         return lo, hi
-    fn = _build.load("fm_scan").fm_scan_launch
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, I, P, P, I, I, P, P, P]
-    fn.restype = I
-    _build.check(fn(_build.ptr(syms), _build.ptr(bwt), int(bwt.shape[0]),
-                    _build.ptr(occ), _build.ptr(meta), steps, B,
-                    _build.ptr(lo), _build.ptr(hi), _build.stream_of(syms)),
-                 "fm_scan")
+    fn = _build.launcher("fm_scan", "fm_scan_launch",
+                         [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P])
+    _build.check(fn(_build.ptr(patterns), _build.ptr(plen), _build.ptr(bwt),
+                    nblk, _build.ptr(occ), _build.ptr(meta), B, W,
+                    _build.ptr(lo), _build.ptr(hi),
+                    _build.stream_of(patterns)), "fm_scan")
     _build.LAUNCHES["fm_scan"] += 1
     return lo, hi

@@ -1,5 +1,6 @@
-"""The 17-ary two-bound search of the ``tablet_scan`` and ``tier_scan``
-kernels (``csrc/search.cuh`` ``warp_kary_bounds``), in plain PyTorch.
+"""The 17-ary two-bound search of the ``bounded_search``, ``tablet_scan``
+and ``tier_scan`` kernels (``csrc/search.cuh`` ``warp_kary_bounds``), in
+plain PyTorch.
 
 Over sorted suffix rows the predicate "row < pattern" is monotone (a
 truncated prefix-equal row counts as less; pad rows sort first and are

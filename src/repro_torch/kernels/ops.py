@@ -107,23 +107,30 @@ def fused_single(store, stack, patterns, plen):
     return merged, base, tiers
 
 
+def _fm_kernel(arrays, patterns) -> bool:
+    """True where ``fm_search`` launches the ``fm_scan`` kernel: a
+    packed-DNA batch on CUDA against a DNA index."""
+    return bool(arrays.is_dna and patterns.dtype == torch.uint32
+                and patterns.is_cuda)
+
+
 def fm_search(arrays, patterns, plen, *, first_pos: bool = True):
     """Frozen-tier base read: FM backward search + one LF walk for
     ``first_pos``, with ``query``'s MatchResult contract.  A packed-DNA
-    batch on CUDA runs the ``fm_scan`` kernel; everything else (the
-    CPU, token tables on every device) runs ``fm_scan.search_syms``.
-    ``first_rank`` is -1 where nothing matched (``fm_scan.
-    finish_match``); ``first_pos=False`` skips the LF walk and reports
-    ``first_pos`` -1."""
-    packed = arrays.is_dna and patterns.dtype == torch.uint32
-    if packed:
-        syms = _fm.syms_from_packed(patterns, plen, patterns.shape[1] * 16)
+    batch on CUDA runs the ``fm_scan`` kernel straight from the packed
+    patterns; everything else (the CPU, token tables on every device)
+    runs ``fm_scan.search_syms`` over the symbol plan.  ``first_rank``
+    is -1 where nothing matched (``fm_scan.finish_match``);
+    ``first_pos=False`` skips the LF walk and reports ``first_pos`` -1."""
+    if _fm_kernel(arrays, patterns):
+        lo, hi = _fm.fm_scan_cuda(patterns, plen, arrays.bwt, arrays.occ,
+                                  arrays.meta)
     else:
-        syms = _fm.syms_from_codes(patterns, plen, patterns.shape[1])
-    if packed and patterns.is_cuda:
-        lo, hi = _fm.fm_scan_cuda(syms, arrays.bwt, arrays.occ,
-                                  _fm.fm_meta(arrays))
-    else:
+        if arrays.is_dna and patterns.dtype == torch.uint32:
+            syms = _fm.syms_from_packed(patterns, plen,
+                                        patterns.shape[1] * 16)
+        else:
+            syms = _fm.syms_from_codes(patterns, plen, patterns.shape[1])
         lo, hi = _fm.search_syms(arrays, syms)
     found, count, first_rank, pos = _fm.finish_match(arrays, lo, hi,
                                                      walk=first_pos)

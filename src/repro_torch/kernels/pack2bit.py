@@ -31,11 +31,9 @@ def pack2bit_cuda(codes: torch.Tensor) -> torch.Tensor:
     out = torch.empty(n_words, dtype=torch.uint32, device=codes.device)
     if n_words == 0:
         return out
-    lib = _build.load("pack2bit")
-    fn = lib.pack2bit_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.launcher("pack2bit", "pack2bit_launch",
+                         [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                          ctypes.c_longlong, ctypes.c_void_p])
     _build.check(fn(_build.ptr(codes), n, _build.ptr(out), n_words,
                     _build.stream_of(codes)), "pack2bit")
     _build.LAUNCHES["pack2bit"] += 1

@@ -1,19 +1,22 @@
-"""CUDA masked packed compare and batched binary search — the port of
-``repro.kernels.pattern_scan``.
+"""CUDA masked packed compare and the two-bound search of the base
+suffix array — the port of ``repro.kernels.pattern_scan``.
 
-Two entry points over one ``__device__`` compare in
-``csrc/pattern_scan.cu``:
+Two entry points in ``csrc/pattern_scan.cu``:
 
 * :func:`pattern_compare_cuda` — the exact ``pattern_compare_pallas``
   contract over explicit windows: ``(lt, le, eq)`` int8;
-* :func:`bounded_search_cuda` — every round of both bounds of
-  ``query._bounded_search`` in one launch, one thread per (query,
-  bound), each round gathering ``sa[mid]`` and funnel-shifting the window
-  out of the packed text.  ``query.query`` launches it on CUDA.
+* :func:`bounded_search_cuda` — both bounds of ``query.
+  _bounded_search`` in one launch: the 17-ary warp search of
+  ``csrc/search.cuh`` (one warp per query), each probe gathering
+  ``sa[row]`` and funnel-shifting the window out of the packed text.
+  ``query.query`` launches it on CUDA.
 
-Plain versions: ``ref.pattern_compare_ref`` and
-``query.search_bounds_plain``.  Layouts are the natural (B, W); the GPU
-kernels bound-check instead of padding to a block multiple.
+Plain versions: ``ref.pattern_compare_ref``; for the search,
+:func:`bounded_search_plain` (the kernel's 17-ary search, through
+``kernels.kary``) and ``query.search_bounds_plain`` (the reference's
+binary search).  All give the same bounds.  Layouts are the natural
+(B, W); the GPU kernels bound-check instead of padding to a block
+multiple.
 """
 from __future__ import annotations
 
@@ -21,8 +24,10 @@ import ctypes
 
 import torch
 
-from repro_torch.core import query as Q
-from repro_torch.kernels import _build
+from repro_torch.core import codec
+from repro_torch.kernels import _build, kary
+
+MAX_WORDS = 16  # pattern words a warp stages in shared memory (256 bases)
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -61,9 +66,8 @@ def pattern_compare_cuda(windows: torch.Tensor, patterns: torch.Tensor,
             for _ in range(3)]
     if B == 0:
         return tuple(outs)
-    fn = _build.load("pattern_scan").pattern_compare_launch
-    fn.argtypes = [_P, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _P]
-    fn.restype = _I
+    fn = _build.launcher("pattern_scan", "pattern_compare_launch",
+                         [_P, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _P])
     _build.check(fn(_build.ptr(win), _build.ptr(patt), _build.ptr(plen),
                     _build.ptr(pos), int(n_real), B, W,
                     *(_build.ptr(o) for o in outs), _build.stream_of(win)),
@@ -72,19 +76,46 @@ def pattern_compare_cuda(windows: torch.Tensor, patterns: torch.Tensor,
     return tuple(outs)
 
 
+def bounded_search_plain(sa: torch.Tensor, text_packed: torch.Tensor,
+                         n_real: int, patterns: torch.Tensor,
+                         plen: torch.Tensor, n_rows: int, *, trace=None,
+                         arity: int = kary.ARITY):
+    """The kernel's 17-ary search in plain PyTorch; arguments and
+    results as :func:`bounded_search_cuda`.  ``trace`` and ``arity`` as
+    in ``kary.search`` (the rows the kernel probes; 2 for the binary
+    search of ``query.search_bounds_plain``)."""
+    W = int(patterns.shape[1])
+    sa = sa.to(torch.int64)
+
+    def probe(rows):
+        pos = sa[rows]
+        win = codec.extract_window(text_packed, pos, W)
+        return kary.compare(win, pos, patterns, plen, n_real)
+
+    lb, ub = kary.search(int(n_rows), int(patterns.shape[0]), probe,
+                         device=patterns.device, trace=trace, arity=arity)
+    return lb.to(torch.int32), ub.to(torch.int32)
+
+
 def bounded_search_cuda(sa: torch.Tensor, text_packed: torch.Tensor,
                         n_real: int, patterns: torch.Tensor,
                         plen: torch.Tensor, n_rows: int):
     """(lb, ub) int32 (B,): the lower (pred = lt) and upper (pred =
-    lt | eq) bounds of every query over ``sa[:n_rows]``, exactly
-    ``query.search_bounds_plain``."""
+    lt | eq) bounds of every query over the sorted rows ``sa[:n_rows]``,
+    exactly ``query.search_bounds_plain``.  patterns (B, W) uint32 with
+    W <= 16; plen (B,); text_packed the store's packed text."""
     patt = _cuda_words(patterns, "patterns")
     text = _cuda_words(text_packed, "text_packed")
     sa = _cuda_i32(sa, "sa")
     plen = _cuda_i32(plen, "plen")
+    if patt.dim() != 2:
+        raise ValueError(f"patterns must be (B, W), got {tuple(patt.shape)}")
     B, W = patt.shape
     if plen.shape != (B,):
         raise ValueError("plen must be (B,)")
+    if W > MAX_WORDS:
+        raise ValueError(f"{W} pattern words > {MAX_WORDS}: the kernel "
+                         f"stages at most {MAX_WORDS} in shared memory")
     if not 0 < n_rows <= sa.shape[0]:
         raise ValueError(f"n_rows={n_rows} out of range for "
                          f"{sa.shape[0]} SA rows")
@@ -92,13 +123,11 @@ def bounded_search_cuda(sa: torch.Tensor, text_packed: torch.Tensor,
     ub = torch.empty(B, dtype=torch.int32, device=patt.device)
     if B == 0:
         return lb, ub
-    fn = _build.load("pattern_scan").bounded_search_launch
-    fn.argtypes = [_P, _I, _P, _LL, _LL, _P, _P, _I, _I, _I, _P, _P, _P]
-    fn.restype = _I
+    fn = _build.launcher("pattern_scan", "bounded_search_launch",
+                         [_P, _I, _P, _LL, _LL, _P, _P, _I, _I, _P, _P, _P])
     _build.check(fn(_build.ptr(sa), int(n_rows), _build.ptr(text),
                     int(text.shape[0]), int(n_real), _build.ptr(patt),
-                    _build.ptr(plen), B, W, Q.search_steps(n_rows),
-                    _build.ptr(lb), _build.ptr(ub), _build.stream_of(patt)),
-                 "bounded_search")
+                    _build.ptr(plen), B, W, _build.ptr(lb), _build.ptr(ub),
+                    _build.stream_of(patt)), "bounded_search")
     _build.LAUNCHES["bounded_search"] += 1
     return lb, ub

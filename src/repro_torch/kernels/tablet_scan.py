@@ -90,10 +90,9 @@ def tablet_scan_cuda(patterns_t: torch.Tensor, plen: torch.Tensor,
                           for _ in range(3))
     if B == 0:
         return count, less, first
-    fn = _build.load("tablet_scan").tablet_scan_launch
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, P, ctypes.c_longlong, I, I, I, P, P, P, P]
-    fn.restype = I
+    fn = _build.launcher("tablet_scan", "tablet_scan_launch",
+                         [P, P, P, P, ctypes.c_longlong, I, I, I, P, P, P, P])
     _build.check(fn(_build.ptr(pt), _build.ptr(plen), _build.ptr(wt),
                     _build.ptr(pos), int(n_real), B, W, R,
                     _build.ptr(count), _build.ptr(less), _build.ptr(first),

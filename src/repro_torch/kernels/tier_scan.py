@@ -275,11 +275,10 @@ def tier_scan_cuda(patterns_t: torch.Tensor, plen: torch.Tensor,
                  for _ in range(4))
     if T == 0 or B == 0:
         return outs
-    fn = _build.load("tier_scan").tier_scan_launch
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, ctypes.c_longlong, P, P, P, I, I, I, I,
-                   P, P, P, P, P]
-    fn.restype = I
+    fn = _build.launcher("tier_scan", "tier_scan_launch",
+                         [P, P, P, ctypes.c_longlong, P, P, P, I, I, I, I,
+                          P, P, P, P, P])
     _build.check(fn(_build.ptr(pt), _build.ptr(plen), _build.ptr(text),
                     int(text.shape[1]), _build.ptr(sa), _build.ptr(pad_cnt),
                     _build.ptr(meta), T, B, W, R,

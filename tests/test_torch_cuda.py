@@ -40,6 +40,7 @@ def test_pack2bit_kernel_matches_plain(cuda, n):
 def test_pattern_compare_and_search_kernels_match_plain(cuda, B, W, text_n):
     from repro_torch.core.tablet import build_tablet_store
     from repro_torch.kernels.pattern_scan import (bounded_search_cuda,
+                                                  bounded_search_plain,
                                                   pattern_compare_cuda)
     store = build_tablet_store(C.random_dna(text_n, seed=B), device=cuda)
     pats = Q.random_patterns(B, 1, W * 16, seed=(B, W))
@@ -55,6 +56,64 @@ def test_pattern_compare_and_search_kernels_match_plain(cuda, B, W, text_n):
                                  pp, pl, store.n_pad)
     plb, pub = Q.search_bounds_plain(store, pp, pl)
     assert torch.equal(lb, plb) and torch.equal(ub, pub)
+    klb, kub = bounded_search_plain(store.sa, store.text_packed,
+                                    store.n_real, pp, pl, store.n_pad)
+    assert torch.equal(lb, klb) and torch.equal(ub, kub)
+
+
+def _search_case(cuda, case):
+    """(store, patterns) for one edge of the base search: 1- to 3-base
+    patterns; patterns of exactly 16 W = 128 bases; patterns longer than
+    a 20-base text; a store with 200 pad rows (and the empty pattern);
+    stores of 1, 16, 17 and 18 rows."""
+    from repro_torch.core.tablet import build_tablet_store
+    if case.startswith("rows_"):
+        n, min_rows = int(case[5:]), 0
+    else:
+        n = {"longer_than_text": 20, "pad_rows": 1000}.get(case, 2000)
+        min_rows = 1200 if case == "pad_rows" else 0
+    codes = C.random_dna(n, seed=n)
+    store = build_tablet_store(codes, min_rows=min_rows, device=cuda)
+    text = C.decode_dna(codes)
+    if case.startswith("rows_"):
+        pats = Q.random_patterns(30, 1, 8, seed=5) + [
+            text, text[1:], text + "A", "A", "C"]
+    elif case == "longer_than_text":
+        pats = Q.random_patterns(20, 21, 128, seed=12) + [
+            text + "A", text[5:] + "ACGT", text[5:], text, "A"]
+    elif case == "short_patterns":
+        pats = ["A", "C", "G", "T"] + Q.random_patterns(300, 1, 3, seed=7)
+    elif case == "full_width":
+        pats = Q.random_patterns(10, 128, 128, seed=9) + [
+            text[i:i + 128] for i in (0, 17, 500, len(text) - 128)]
+    else:
+        pats = ["", "A", "AAAA", "T" * 9] + Q.random_patterns(
+            30, 1, 40, seed=13) + [text[-5:], text[-1:]]
+    return store, pats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["short_patterns", "full_width",
+                                  "longer_than_text", "pad_rows", "rows_1",
+                                  "rows_16", "rows_17", "rows_18"])
+def test_bounded_search_kernel_search_edges(cuda, case):
+    """The 17-ary warp search against its plain version and the binary
+    search, exactly, at the search's edges."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pattern_scan import (bounded_search_cuda,
+                                                  bounded_search_plain)
+    store, pats = _search_case(cuda, case)
+    _, pp, pl = Q.encode_patterns(pats, 128, device=cuda)
+    args = (store.sa, store.text_packed, store.n_real, pp, pl, store.n_pad)
+    before = _build.LAUNCHES["bounded_search"]
+    lb, ub = bounded_search_cuda(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["bounded_search"] == before + 1
+    for want in (bounded_search_plain(*args),
+                 Q.search_bounds_plain(store, pp, pl)):
+        assert torch.equal(lb, want[0]) and torch.equal(ub, want[1])
+    res = Q.query(store, pp, pl)                       # the kernel path
+    assert torch.equal(res.count, ub - lb)
 
 
 def _tier_outputs_agree(stack, pats, meta=None):
@@ -220,7 +279,7 @@ def test_fm_scan_kernel_matches_plain(cuda, n):
     _, pp, pl = Q.encode_patterns(pats, 48, device=cuda)
     fa = fm.arrays
     syms = FM.syms_from_packed(pp, pl, pp.shape[1] * 16)
-    got = FM.fm_scan_cuda(syms, fa.bwt, fa.occ, FM.fm_meta(fa))
+    got = FM.fm_scan_cuda(pp, pl, fa.bwt, fa.occ, fa.meta)
     want = FM.search_syms(fa, syms)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -232,6 +291,42 @@ def test_fm_scan_kernel_matches_plain(cuda, n):
     res_cpu = ops.fm_search(cpu.arrays, pp.cpu(), pl.cpu())
     for name in ("found", "count", "first_rank", "first_pos"):
         assert torch.equal(getattr(res, name).cpu(), getattr(res_cpu, name))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 2, 8])
+@pytest.mark.parametrize("n", [63, 127, 130])
+def test_fm_scan_kernel_plen_edges(cuda, n, W):
+    """plen in {0, 1, 15, 16, 17, 16 W} and past 16 W (the plan's
+    clamps), on indices with rows % 64 == 0 (n = 63, 127) and not: the
+    kernel over packed patterns against ``search_syms`` over the plan,
+    exactly, and ``ops.fm_search`` launches it."""
+    from repro_torch.api import FMIndex
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fm_scan as FM
+    codes = C.random_dna(n, seed=n)
+    fa = FMIndex.build(codes, None, is_dna=True, sample_rate=8,
+                       device=cuda).arrays
+    text = C.decode_dna(codes)
+    width = 16 * W
+    pats, plens = [], []
+    for k, L in enumerate(sorted({0, 1, 15, 16, 17, width, width + 5,
+                                  2 * width + 3})):
+        take = min(L, width)
+        pats += [text[k:k + take], Q.random_patterns(1, take, take,
+                                                     seed=k)[0][:take]]
+        plens += [L, L]
+    _, pp, _ = Q.encode_patterns(pats, width, device=cuda)
+    pl = torch.tensor(plens, dtype=torch.int32, device=cuda)
+    got = FM.fm_scan_cuda(pp, pl, fa.bwt, fa.occ, fa.meta)
+    torch.cuda.synchronize()
+    want = FM.search_syms(fa, FM.syms_from_packed(pp, pl, width))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    before = _build.LAUNCHES["fm_scan"]
+    res = ops.fm_search(fa, pp, pl, first_pos=False)
+    assert _build.LAUNCHES["fm_scan"] == before + 1
+    assert torch.equal(res.count, (want[1] - want[0]).to(torch.int32))
 
 
 @pytest.mark.cuda

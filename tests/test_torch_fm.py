@@ -120,6 +120,74 @@ def test_backward_search_matches_pallas_and_oracle(n):
         assert int(count[i]) == want, p
 
 
+@pytest.mark.parametrize("W", [1, 2, 8])
+@pytest.mark.parametrize("n", [63, 127, 130])
+def test_fm_scan_packed_contract_matches_pallas(n, W):
+    """The ``fm_scan`` kernel's contract over packed patterns (its plain
+    version, ``backward_search``: ``search_syms`` over ``syms_from_packed(
+    patt, plen, 16 W)``) against ``fm_scan_pallas`` in interpret mode
+    over JAX's plan, with plen in {0, 1, 15, 16, 17, 16 W} and past 16 W
+    (the plan's clamps), on indices with rows % 64 == 0 (n = 63, 127)
+    and not (n = 130)."""
+    codes, jfm, fm = _dna_index(n)
+    text = C.decode_dna(codes)
+    width = 16 * W
+    lens = sorted({0, 1, 15, 16, 17, width, width + 5, 2 * width + 3})
+    pats, plens = [], []
+    for k, L in enumerate(lens):
+        take = min(L, width)
+        for src in (text[k:k + take], Q.random_patterns(1, take, take,
+                                                        seed=k)[0]):
+            pats.append(src[:take] if take else "")
+            plens.append(L)
+    _, jp, _ = JQ.encode_patterns(pats, width)
+    _, pp, _ = Q.encode_patterns(pats, width, device=CPU)
+    plen = np.asarray(plens, np.int32)
+    lo, hi = FS.backward_search(fm.arrays, pp, torch.from_numpy(plen))
+    jsyms = JFS.syms_from_packed(jp, jnp.asarray(plen), width)
+    padded, B = JOPS._pad_to(jsyms, JFS.BLOCK_Q, 1, fill=-1)
+    klo, khi = JFS.fm_scan_pallas(padded, jfm.arrays.bwt, jfm.arrays.occ,
+                                  JFS.pallas_meta(jfm.arrays),
+                                  interpret=True)
+    np.testing.assert_array_equal(lo.numpy(), np.asarray(klo)[:B])
+    np.testing.assert_array_equal(hi.numpy(), np.asarray(khi)[:B])
+    assert (int(lo[0]), int(hi[0])) == (0, n + 1)       # plen 0: all rows
+    assert fm.arrays.meta is fm.arrays.meta             # built once
+    np.testing.assert_array_equal(fm.arrays.meta.numpy(),
+                                  np.asarray(JFS.pallas_meta(jfm.arrays)))
+
+
+def test_fm_search_kernel_path_builds_no_plan(monkeypatch):
+    """On the kernel's path (``ops._fm_kernel`` true, as for a packed
+    CUDA batch) ``ops.fm_search`` hands the packed patterns and the
+    index's cached meta to ``fm_scan_cuda`` and builds no symbol plan."""
+    codes, _jfm, fm = _dna_index(130)
+    pats = _dna_patterns(codes, 40, seed=3)
+    _, pp, pl = Q.encode_patterns(pats, 32, device=CPU)
+    want = ops.fm_search(fm.arrays, pp, pl)
+    lo_hi = FS.backward_search(fm.arrays, pp, pl)
+    calls = []
+
+    def fake_kernel(patterns, plen, bwt, occ, meta):
+        calls.append((patterns, plen, bwt, occ, meta))
+        return lo_hi
+
+    def no_plan(*_a, **_k):
+        raise AssertionError("the kernel path built a symbol plan")
+
+    monkeypatch.setattr(ops, "_fm_kernel", lambda arrays, patterns: True)
+    monkeypatch.setattr(FS, "fm_scan_cuda", fake_kernel)
+    monkeypatch.setattr(FS, "syms_from_packed", no_plan)
+    monkeypatch.setattr(FS, "syms_from_codes", no_plan)
+    got = ops.fm_search(fm.arrays, pp, pl)
+    assert len(calls) == 1
+    patterns, plen, bwt, occ, meta = calls[0]
+    assert patterns is pp and plen is pl and meta is fm.arrays.meta
+    assert bwt is fm.arrays.bwt and occ is fm.arrays.occ
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
 @pytest.mark.parametrize("n", DNA_N)
 def test_rank_and_lf_walk_match_reference(n):
     """Every (symbol, row) rank — i = rows included, which reaches past

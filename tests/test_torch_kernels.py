@@ -323,16 +323,23 @@ def test_tier_scan_plain_rows_below_stack(n_rows):
         assert bool((got[3] == TS.BIG).all())
 
 
-def _tablet_case(text_n, W):
+def _stores(text_n, min_rows=0):
+    """A JAX store over ``text_n`` random bases (``min_rows`` pads it)
+    and the same store carried over to the port."""
     from repro.core.tablet import build_tablet_store as j_build
     from repro_torch.core.tablet import store_from_numpy
     codes = C.random_dna(text_n, seed=text_n)
-    js = j_build(codes)
+    js = j_build(codes, min_rows=min_rows)
     store = store_from_numpy(
         {k: np.asarray(getattr(js, k)) for k in
          ("text_packed", "text_codes", "sa")}
         | {k: getattr(js, k) for k in
            ("n_real", "n_pad", "is_dna", "max_query_len")}, device=CPU)
+    return codes, js, store
+
+
+def _tablet_case(text_n, W):
+    codes, js, store = _stores(text_n)
     return codes, js, store, C.extract_window(store.text_packed, store.sa, W)
 
 
@@ -497,3 +504,89 @@ def test_tier_pad_prefix_is_padding(base_n, chunks):
     is_pad = torch.roll(stack.pad_cnt.diff(dim=1), 1, dims=1)
     bad = torch.nn.functional.pad(torch.cumsum(is_pad, 1), (1, 0))
     assert not TS.pad_prefix(bad).any()
+
+
+# ---------------------------------------------------------------------------
+# the bounded_search kernel's plain 17-ary search — CPU
+# ---------------------------------------------------------------------------
+SEARCH_CASES = ["short_patterns", "full_width", "longer_than_text",
+                "pad_rows", "rows_1", "rows_16", "rows_17", "rows_18"]
+
+
+def _search_case(case):
+    """(codes, JAX store, port store, patterns) for one edge of the
+    base search: 1- to 3-base patterns; patterns of exactly 16 W = 128
+    bases (hits among them); patterns longer than a 20-base text; a
+    store with 200 pad rows (and the empty pattern); stores of 1, 16,
+    17 and 18 rows, where the 17-ary splitters repeat."""
+    if case.startswith("rows_"):
+        codes, js, store = _stores(int(case[5:]))
+        text = C.decode_dna(codes)
+        return codes, js, store, Q.random_patterns(30, 1, 8, seed=5) + [
+            text, text[1:], text + "A", "A", "C"]
+    if case == "longer_than_text":
+        codes, js, store = _stores(20)
+        text = C.decode_dna(codes)
+        return codes, js, store, Q.random_patterns(20, 21, 128, seed=12) + [
+            text + "A", text[5:] + "ACGT", text[5:], text, "A"]
+    codes, js, store = _stores(1000 if case == "pad_rows" else 2000,
+                               min_rows=1200 if case == "pad_rows" else 0)
+    text = C.decode_dna(codes)
+    if case == "short_patterns":
+        pats = ["A", "C", "G", "T"] + Q.random_patterns(30, 1, 3, seed=7)
+    elif case == "full_width":
+        pats = Q.random_patterns(10, 128, 128, seed=9) + [
+            text[i:i + 128] for i in (0, 17, 500, len(text) - 128)]
+    else:
+        pats = ["", "A", "AAAA", "T" * 9] + Q.random_patterns(30, 1, 40,
+                                                              seed=13) + [
+            text[-5:], text[-1:]]
+    return codes, js, store, pats
+
+
+@pytest.mark.parametrize("case", SEARCH_CASES)
+def test_bounded_search_plain_matches_binary_and_reference(case):
+    """The ``bounded_search`` kernel's plain version (its 17-ary search,
+    ``kernels.kary``, probing ``sa`` and the packed text) equals the
+    port's binary search (``query.search_bounds_plain``) and the bounds
+    of ``repro.core.query`` on the same store, exactly; its rounds stay
+    within ``kary.max_rounds(n_pad)`` and the binary search traced by
+    ``kary.search(arity=2)`` ends at the same bounds."""
+    from repro.core import query as JQ2
+    from repro_torch.kernels import kary
+    from repro_torch.kernels.pattern_scan import bounded_search_plain
+    _codes, js, store, pats = _search_case(case)
+    _, jp, jl = JQ.encode_patterns(pats, 128)
+    _, pp, pl = Q.encode_patterns(pats, 128, device=CPU)
+    assert pp.shape[1] == 8
+    n = store.n_pad
+    args = (store.sa, store.text_packed, store.n_real, pp, pl, n)
+    trace, bin_trace = [], []
+    lb, ub = bounded_search_plain(*args, trace=trace)
+    blb, bub = bounded_search_plain(*args, trace=bin_trace, arity=2)
+    plb, pub = Q.search_bounds_plain(store, pp, pl)
+    jlb = JQ2._bounded_search(
+        js.sa, lambda pos: JQ2._compare(js, pos, jp, jl)[0], len(pats), n)
+    jub = JQ2._bounded_search(
+        js.sa, lambda pos: (lambda lt, eq: lt | eq)(
+            *JQ2._compare(js, pos, jp, jl)), len(pats), n)
+    for got, want in ((lb, plb), (ub, pub), (blb, plb), (bub, pub)):
+        assert got.dtype == torch.int32
+        assert torch.equal(got, want)
+    np.testing.assert_array_equal(lb.numpy(), np.asarray(jlb))
+    np.testing.assert_array_equal(ub.numpy(), np.asarray(jub))
+    rounds = sum(1 for r, _ in trace if r.numel())
+    assert 1 <= rounds <= kary.max_rounds(n)
+    assert all(int(r.max()) < n for r, _ in trace + bin_trace if r.numel())
+    if case == "pad_rows":
+        assert store.pad_count == 200
+        # "": pad rows past n_real are truncated (lt), the pad row at
+        # n_real and every real row are equal
+        assert (int(lb[0]), int(ub[0])) == (store.pad_count - 1, n)
+        assert bool((lb[1:] >= store.pad_count).all())
+    if case == "longer_than_text":
+        longer = pl > store.n_real
+        assert int(longer.sum()) >= 20
+        assert bool((ub == lb)[longer].all())           # never a match
+    if case == "full_width":
+        assert bool((pl == 128).all()) and bool((ub[-4:] > lb[-4:]).all())
