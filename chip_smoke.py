@@ -30,7 +30,25 @@ through the public entry points at chromosome scale:
                  workload and ``locate(top_k=5)`` again (fm_scan plus the
                  tier scan kernel); must equal ``[merged]`` and
                  ``[locate]``;
-9. ``[kernels]`` every kernel's launches on that run (must be > 0) and
+9. ``[compact]`` major compaction of the live table (the merge's
+                 insertion search is a ``bounded_search`` launch, the
+                 re-attach packs the text with pack2bit): the merged SA
+                 must equal a from-scratch build on every row, and the
+                 workload on the compacted table (``[compacted]``) must
+                 equal ``[merged]``;
+10. ``[frozen-compact]`` the same for the frozen table: its SA rebuilt
+                 from the index, merged, frozen again; it must stay
+                 frozen and ``[frozen-compacted]`` must equal ``[merged]``;
+11. ``[persist]`` ``SuffixTable.create`` under a directory in
+                 ``build/``, the three appends, ``flush``, then ``open``
+                 in a fresh object (``[reopened]`` must equal
+                 ``[merged]``); seconds and bytes on disk;
+12. ``[wal]``    one more append to the reopened table, no flush, and
+                 ``open`` again: the commit log's replay must give the
+                 appending table's answers (``[replayed]``);
+13. ``[kernels]`` every kernel's launches on each of the three paths
+                 (serving 1-8, compaction 9-10, persistence 11-12; the
+                 counts are set to 0 before each and read after it) and
                  its result held against its plain PyTorch version(s)
                  on inputs taken from that run; a sample of counts is
                  checked against a numpy brute-force scan of the text.
@@ -40,6 +58,12 @@ through the public entry points at chromosome scale:
                  backward search's ranks and words, and ``[ptxas]``
                  lines give every kernel's registers, shared memory and
                  spills.
+
+``pattern_compare`` runs on the serving path as the epilogue of the
+``bounded_search`` launch (``pattern_scan.bounded_match_cuda``): its
+standalone kernel must show no launch there, and ``found == (count >
+0)`` must hold on every query of every live phase; the epilogue's four
+outputs are held against their plain version on a whole batch.
 
 It prints one JSON line of per-kernel numbers (``ms``: time per call as
 the host issues them; ``device_ms``: device time of launches queued back
@@ -52,8 +76,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -328,9 +354,12 @@ def main() -> int:
     from repro_torch.kernels.tablet_scan import (tablet_scan_cuda,
                                                  tablet_scan_plain)
     from repro_torch.kernels.pack2bit import pack2bit_cuda
-    from repro_torch.kernels.pattern_scan import (bounded_search_cuda,
+    from repro_torch.kernels.pattern_scan import (bounded_match_cuda,
+                                                  bounded_match_plain,
+                                                  bounded_search_cuda,
                                                   bounded_search_plain,
                                                   pattern_compare_cuda)
+    from repro_torch.core.suffix_array import build_suffix_array
 
     failures: list[str] = []
 
@@ -374,9 +403,23 @@ def main() -> int:
 
     patterns = Q.random_patterns(N_QUERIES, 1, 100, seed=0)
 
+    # every base search of a live table is one query.query call (the
+    # planner's and ops.fused_single's): keep its results, to check
+    # found == (count > 0) on every query after each phase
+    live_results = []
+    search = Q.query
+
+    def recording_query(store, patt, plen):
+        res = search(store, patt, plen)
+        live_results.append(res)
+        return res
+
+    Q.query = recording_query
+
     def serve(tag: str, table) -> tuple[np.ndarray, np.ndarray]:
         """The workload through ``table.scan``: (counts, first_pos)."""
         lat, counts, firsts = [], [], []
+        live_results.clear()
         table.tracer.reset()
         t_all = time.perf_counter()
         for i in range(0, N_QUERIES, BATCH):
@@ -395,6 +438,15 @@ def main() -> int:
               f"found={int((c > 0).sum())}", flush=True)
         check(c.shape == (N_QUERIES,) and bool((c >= 0).all()),
               f"{tag}: counts have the expected shape and are >= 0")
+        if not table.is_frozen:
+            n_q = sum(int(r.count.shape[0]) for r in live_results)
+            ok = all(torch.equal(r.found, r.count > 0) for r in live_results)
+            print(f"[found:{tag}] searches={len(live_results)} "
+                  f"queries={n_q} found_eq_count_gt_0="
+                  f"{str(bool(ok)).lower()}", flush=True)
+            # (queries the table's string cache answered never reach it)
+            check(ok and n_q > 0,
+                  f"{tag}: found == (count > 0) on every searched query")
         spans = table.tracer.snapshot()
         print(f"[spans:{tag}] " + " ".join(
             f"{k}:sum_ms={v['sum_ms']},p50_ms={v['p50_ms']}"
@@ -480,13 +532,149 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     # ---------------- end of the main path ------------------------------
+    print(f"[serve-launches] " + " ".join(
+        f"{k}={v}" for k, v in launches.items()), flush=True)
+    check(launches["pattern_compare"] == 0,
+          "the standalone pattern_compare kernel is not launched on the "
+          "serving path (its compare is bounded_search's epilogue)")
+    text = np.concatenate([base] + appended)
+    # outside the counted paths: profiles of the merged phases, and the
+    # tier stack and FM index the kernel rows below are measured on
+    profile_batches(torch, table, patterns, "merged")
+    profile_batches(torch, frozen, patterns, "frozen-merged")
+    tier_stack = table._tierset().stack
+    fm_arrays = frozen.fm.arrays
+
+    # ---------------- compaction path: counted apart --------------------
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    version = table.compact()
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    merge_searches = _build.LAUNCHES["bounded_search"]
+    t0 = time.perf_counter()
+    rebuilt = build_suffix_array(torch.from_numpy(text).to(table.device))
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    st = table.store
+    same_sa = torch.equal(st.sa[st.pad_count:], rebuilt)
+    del rebuilt
+    print(f"[compact] n={len(text)} delta={len(text) - TEXT_LEN} "
+          f"dirty={len(text) - TEXT_LEN + MAX_QUERY_LEN - 1} "
+          f"version={version} merge_seconds={merge_s:.4f} "
+          f"rebuild_seconds={rebuild_s:.4f} "
+          f"merge_search_launches={merge_searches} "
+          f"sa_equals_rebuild={str(same_sa).lower()}", flush=True)
+    check(same_sa, "the compacted SA equals a from-scratch build on every "
+          "row")
+    check(version == 1 and not table.runs and table.memtable.size == 0,
+          "compaction folded the run and the memtable into version 1")
+    check(merge_searches >= 1, "the merge's insertion search ran as a "
+          "bounded_search launch")
+    cc, cf = serve("compacted", table)
+    check(np.array_equal(cc, merged_counts)
+          and np.array_equal(cf, merged_first),
+          "compacted counts and first_pos equal the merged phase's")
+    check(np.array_equal(table.locate(loc_pats, top_k=5), located),
+          "compacted locate(top_k=5) equals the merged phase's")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fversion = frozen.compact()
+    torch.cuda.synchronize()
+    fmerge_s = time.perf_counter() - t0
+    print(f"[frozen-compact] version={fversion} seconds={fmerge_s:.4f} "
+          f"is_frozen={str(frozen.is_frozen).lower()} "
+          f"fm_n={frozen.fm.n if frozen.fm is not None else -1}",
+          flush=True)
+    check(frozen.is_frozen and fversion == 1 and frozen.fm.n == len(text),
+          "the frozen table stays frozen across compaction")
+    fcc, fcf = serve("frozen-compacted", frozen)
+    check(np.array_equal(fcc, merged_counts)
+          and np.array_equal(fcf, merged_first),
+          "frozen-compacted counts and first_pos equal the merged phase's")
+    torch.cuda.synchronize()
+    compact_launches = dict(_build.LAUNCHES)
+    print(f"[compact-launches] " + " ".join(
+        f"{k}={v}" for k, v in compact_launches.items()), flush=True)
+    for k in ("bounded_search", "pack2bit", "fm_scan"):
+        check(compact_launches[k] > 0, f"{k} launched on the compaction "
+              f"path")
+
+    # ---------------- persistence path: counted apart -------------------
+    _build.reset_launches()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_tables_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ptable = SuffixTable.create("chip", base, root=root, is_dna=True,
+                                    max_query_len=MAX_QUERY_LEN,
+                                    memtable_limit=MEMTABLE_LIMIT)
+        torch.cuda.synchronize()
+        create_s = time.perf_counter() - t0
+        for chunk in appended:
+            ptable.append(chunk)
+        t0 = time.perf_counter()
+        ptable.flush()
+        flush_s = time.perf_counter() - t0
+        del ptable
+        disk = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(root) for f in fs)
+        t0 = time.perf_counter()
+        opened = SuffixTable.open("chip", root=root)
+        torch.cuda.synchronize()
+        open_s = time.perf_counter() - t0
+        st = opened.stats()["tiers"]
+        print(f"[persist] create_seconds={create_s:.4f} "
+              f"flush_seconds={flush_s:.4f} open_seconds={open_s:.4f} "
+              f"bytes_on_disk={disk} runs={st['run_count']} "
+              f"memtable_rows={st['memtable_rows']}", flush=True)
+        check(st["run_count"] == 1 and st["memtable_rows"] == APPEND_LEN,
+              "open restored the sealed run and the memtable")
+        oc, of = serve("reopened", opened)
+        check(np.array_equal(oc, merged_counts)
+              and np.array_equal(of, merged_first),
+              "reopened counts and first_pos equal the merged phase's")
+        extra = codec.random_dna(APPEND_LEN, seed=4)
+        opened.append(extra)            # logged, acked, not flushed
+        ac, af = serve("appended", opened)
+        del opened
+        t0 = time.perf_counter()
+        replayed = SuffixTable.open("chip", root=root)
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        rec = replayed.stats()["wal"]["recovery"] or {}
+        print(f"[wal] open_seconds={replay_s:.4f} "
+              f"records_replayed={rec.get('records_replayed')} "
+              f"reason={rec.get('reason')} "
+              f"memtable_rows={replayed.memtable.size}", flush=True)
+        check(rec.get("records_replayed") == 1
+              and replayed.memtable.size == 2 * APPEND_LEN,
+              "the commit log replayed the unflushed append")
+        rc, rf = serve("replayed", replayed)
+        check(np.array_equal(rc, ac) and np.array_equal(rf, af),
+              "replayed counts and first_pos equal the appending table's")
+        del replayed
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    persist_launches = dict(_build.LAUNCHES)
+    print(f"[persist-launches] " + " ".join(
+        f"{k}={v}" for k, v in persist_launches.items()), flush=True)
+    for k in ("pack2bit", "bounded_search", "tier_scan"):
+        check(persist_launches[k] > 0, f"{k} launched on the persistence "
+              f"path")
+    by_path = {"serve": launches, "compact": compact_launches,
+               "persist": persist_launches}
+    Q.query = search
     print(f"[locate] {json.dumps({p: located[i].tolist() for i, p in enumerate(loc_pats)})}",
           flush=True)
     check(bool((merged_counts >= base_counts).all()),
           "appends never lower a count")
 
     # brute-force sample over the base text and the whole logical text
-    text = np.concatenate([base] + appended)
     rng = np.random.default_rng(0)
     sample = rng.choice(N_QUERIES, size=16, replace=False)
     ok = True
@@ -514,8 +702,12 @@ def main() -> int:
         included; ``device_ms`` the device time of launches back to back
         (L2 warm), ``cold_ms`` of a launch after an L2 flush."""
         b, by = bound_ms(n_bytes, n_ops)
+        counted = "pattern_compare_fused" if name == "pattern_compare" \
+            else name
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces, "launches": launches[counted],
+                     "launches_by_path": {k: v[counted]
+                                          for k, v in by_path.items()},
                      "max_abs_err": err, "ms": cuda_ms(torch, kernel, reps),
                      "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                      "library_ms": library_ms,
@@ -523,7 +715,7 @@ def main() -> int:
                                           queue_ahead=True),
                      "cold_ms": cuda_ms(torch, kernel, reps, flush=flush),
                      **extra})
-        check(launches[name] > 0, f"{name} launched on the main path")
+        check(launches[counted] > 0, f"{name} launched on the main path")
         check(err == 0, f"{name} equals its plain version")
 
     # pack2bit over the whole base text
@@ -544,15 +736,29 @@ def main() -> int:
         TEXT_LEN + 4 * n_words, 2 * 16 * n_words,
         library_ms=cuda_ms(torch, lambda: (lanes << shifts).sum(dim=1), 5))
 
-    # bounded_search on the base store, first batch of the workload: held
-    # against the plain binary search ([linear]'s plb, pub) and the
-    # plain 17-ary version.  Bytes: what the binary search reads (traced
-    # with arity=2, each sa row and text word once), the pattern words
-    # in use, plen and the outputs; operations: ~4 per word compared.
+    # bounded_search on the base store, first batch of the workload, as
+    # the serving path launches it: with the compare epilogue
+    # (bounded_match_cuda), held against its plain version on all 512
+    # queries; its bounds alone (bounded_search_cuda, the compaction
+    # merge's launch) against the plain binary search ([linear]'s plb,
+    # pub) and the plain 17-ary version.  Bytes: what the binary search
+    # reads (traced with arity=2, each sa row and text word once) plus
+    # the epilogue's compare at lb (its sa row and the text words it
+    # reads, into the same dedup), the pattern words in use, plen and
+    # the outputs (13 B a query; 8 for the bounds alone); operations:
+    # ~4 per word compared.
     used_words = int(((plen.to(torch.int64) + 15) // 16).sum())
     sargs = (store.sa, store.text_packed, store.n_real, patt, plen,
              store.n_pad)
+    margs = sargs + (store.pad_count,)
     lb, ub = bounded_search_cuda(*sargs)
+    epi = bounded_match_cuda(*margs)
+    epi_plain = bounded_match_plain(store, patt, plen)
+    epi_err = max_abs_err(torch, epi, epi_plain)
+    epi_found_ok = torch.equal(epi[0], epi[1] > 0)
+    check(epi_err == 0 and epi_found_ok,
+          "the search epilogue's four outputs equal their plain version on "
+          "all queries, and found == (count > 0)")
     trace, bin_trace = [], []
     kary_bounds = bounded_search_plain(*sargs, trace=trace)
     bin_bounds = bounded_search_plain(*sargs, trace=bin_trace, arity=2)
@@ -560,27 +766,57 @@ def main() -> int:
         torch, bin_trace, store.sa, store.text_packed)
     _, s_rounds, s_probes, s_words = search_traffic(
         torch, trace, store.sa, store.text_packed)
+    lbc = lb.clamp(max=store.n_pad - 1).to(torch.int64)
+    pos_lb = store.sa[lbc]
+    _, _, w_lb = kary.compare(
+        codec.extract_window(store.text_packed, pos_lb, W)[None, :, None],
+        pos_lb[None, :, None], patt, plen, store.n_real)
+    w_lb = w_lb.reshape(-1)
+    e_bytes, _, _, _ = search_traffic(
+        torch, bin_trace + [(lbc, w_lb)], store.sa, store.text_packed)
     fixed = 4 * used_words + 4 * B + 2 * B * 4
+    e_fixed = 4 * used_words + 4 * B + 13 * B
+    bounds_only = (lambda: bounded_search_cuda(*sargs))
     row("bounded_search", "src/repro_torch/kernels/csrc/pattern_scan.cu",
         "src/repro/kernels/pattern_scan.py:55",
         max(max_abs_err(torch, [lb, ub], [plb, pub]),
             max_abs_err(torch, [lb, ub], kary_bounds),
-            max_abs_err(torch, bin_bounds, [plb, pub])),
-        lambda: bounded_search_cuda(*sargs), 20,
-        cuda_ms(torch, lambda: Q.search_bounds_plain(store, patt, plen), 2),
-        s_bytes + fixed, 4 * s_bin_words, rounds=s_rounds,
-        binary_rounds=s_bin_rounds,
+            max_abs_err(torch, bin_bounds, [plb, pub]), epi_err),
+        lambda: bounded_match_cuda(*margs), 20,
+        cuda_ms(torch, lambda: bounded_match_plain(store, patt, plen), 2),
+        e_bytes + e_fixed, 4 * (s_bin_words + int(w_lb.sum())),
+        rounds=s_rounds, binary_rounds=s_bin_rounds,
         kary_plain_ms=cuda_ms(torch, lambda: bounded_search_plain(*sargs),
-                              2))
+                              2),
+        bounds_only_ms=cuda_ms(torch, bounds_only, 20),
+        bounds_only_device_ms=cuda_ms(torch, bounds_only, 20,
+                                      queue_ahead=True),
+        bounds_only_cold_ms=cuda_ms(torch, bounds_only, 20, flush=flush),
+        bounds_only_bound_ms=bound_ms(s_bytes + fixed, 4 * s_bin_words)[0])
     check(s_rounds <= kary.max_rounds(store.n_pad),
           "bounded_search ends within floor(log17 n_pad) + 1 rounds")
     print(f"[search] rows={store.n_pad} rounds={s_rounds} "
           f"max_rounds={kary.max_rounds(store.n_pad)} probes={s_probes} "
           f"words={s_words} binary_rounds={s_bin_rounds} "
           f"binary_probes={s_bin_probes} binary_words={s_bin_words} "
-          f"bound_bytes={s_bytes + fixed}", flush=True)
+          f"bound_bytes={e_bytes + e_fixed} "
+          f"bounds_only_bound_bytes={s_bytes + fixed} "
+          f"epilogue_words={int(w_lb.sum())}", flush=True)
+    print(f"[epilogue] queries={B} max_abs_err={epi_err} "
+          f"found={int(epi[0].sum())} found_eq_count_gt_0="
+          f"{str(epi_found_ok).lower()} pattern_compare_standalone_launches="
+          f"{launches['pattern_compare']} fused_launches="
+          f"{launches['pattern_compare_fused']} bounded_search_launches "
+          f"serve={launches['bounded_search']} "
+          f"compact={compact_launches['bounded_search']} "
+          f"persist={persist_launches['bounded_search']}", flush=True)
 
-    # pattern_compare on the suffixes at those lower bounds
+    # pattern_compare: the standalone entry point (the TPU kernel's
+    # contract over explicit windows) on the suffixes at those lower
+    # bounds.  On the serving path the compare runs as the epilogue
+    # above: its launches are the row's, its outputs are in max_abs_err,
+    # and epilogue_bound_ms counts its own bytes (the sa row at lb, the
+    # text words its compare reads, the pattern words, 13 B of outputs)
     pos = store.sa[lb.clamp(0, store.n_pad - 1).to(torch.int64)]
     win = codec.extract_window(store.text_packed, pos, W)
     got = pattern_compare_cuda(win, patt, plen, pos, n_real=store.n_real)
@@ -588,18 +824,23 @@ def main() -> int:
                                    n_real=store.n_real)
     row("pattern_compare", "src/repro_torch/kernels/csrc/pattern_scan.cu",
         "src/repro/kernels/pattern_scan.py:55",
-        max_abs_err(torch, got, want),
+        max(max_abs_err(torch, got, want), epi_err),
         lambda: pattern_compare_cuda(
             win, patt, plen, pos, n_real=store.n_real), 50,
         cuda_ms(torch, lambda: ref.pattern_compare_ref(
             win.T, patt.T, plen, pos, n_real=store.n_real), 5),
-        2 * B * W * 4 + 2 * B * 4 + 3 * B, B * W)
+        2 * B * W * 4 + 2 * B * 4 + 3 * B, B * W,
+        standalone_launches=launches["pattern_compare"],
+        fused_into="bounded_search",
+        epilogue_bound_ms=bound_ms(
+            4 * B + text_bytes(torch, pos_lb, w_lb, store.text_packed)
+            + 4 * used_words + 13 * B, 4 * int(w_lb.sum()))[0])
 
     # tier_scan over the live run + memtable: the kernel reads the stacked
     # packed text and sa; held against its plain 17-ary version, the
     # dense plain version (the TPU kernel's algorithm, over windows) and
     # the binary-search twin
-    stack = table._tierset().stack
+    stack = tier_stack
     meta = ops.tier_meta(stack)
     pt = patt.T.contiguous()
     args = (pt, plen, stack.text_packed, stack.sa, stack.pad_cnt, meta)
@@ -698,7 +939,7 @@ def main() -> int:
     # fm_scan on the frozen table's index, first batch of the workload:
     # the kernel reads the packed patterns; its plain version
     # (backward_search) steps search_syms over the (16 W, B) plan
-    fa = frozen.fm.arrays
+    fa = fm_arrays
     fm_steps = W * 16
     syms = FM.syms_from_packed(patt, plen, fm_steps)
     got = FM.fm_scan_cuda(patt, plen, fa.bwt, fa.occ, fa.meta)
@@ -720,9 +961,6 @@ def main() -> int:
           f"ranks={ranks} words={words} found={int((hi > lo).sum())} "
           f"bwt_words={fa.bwt.shape[0]} occ_rows={fa.occ.shape[0]}",
           flush=True)
-
-    profile_batches(torch, table, patterns, "merged")
-    profile_batches(torch, frozen, patterns, "frozen-merged")
 
     print("[kernels] " + " ".join(
         f"{r['name']}:launches={r['launches']},match="

@@ -20,17 +20,21 @@ orders equal-prefix suffixes shorter-first, which is the sentinel
 order.  The sentinel row (``SA$ == 0``) stores dummy symbol 0 in the
 BWT; Occ counts the raw stream and rank subtracts the dummy.
 
-Persistence (``save``/``load``) waits for the checkpoint manager's port
-and raises ``NotImplementedError``; :meth:`FMIndex.from_numpy` takes a
-reference index's ``state_dict()``/``extra_dict()`` instead.
+:meth:`FMIndex.save`/:meth:`FMIndex.load` keep the artifact in the
+reference's format (a ``checkpoint.manager`` snapshot of
+``state_dict()`` with ``extra_dict()``), so either package loads the
+other's; :meth:`FMIndex.from_numpy` takes a reference index's arrays in
+memory.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager, by_key
 from repro_torch.core import codec
 from repro_torch.core.suffix_array import build_suffix_array
 from repro_torch.device import DeviceLike, resolve_device
@@ -284,13 +288,26 @@ class FMIndex:
                 "sent_row": self.sent_row}
 
     def save(self, directory: str, version: int) -> str:
-        raise NotImplementedError("FMIndex.save waits for the checkpoint "
-                                  "manager's port")
+        mgr = CheckpointManager(directory, keep_n=2)
+        return mgr.save(version, self.state_dict(), extra=self.extra_dict())
 
     @classmethod
-    def load(cls, directory: str) -> Optional["FMIndex"]:
-        raise NotImplementedError("FMIndex.load waits for the checkpoint "
-                                  "manager's port")
+    def load(cls, directory: str,
+             device: DeviceLike = None) -> Optional["FMIndex"]:
+        """Latest persisted artifact in ``directory`` on ``device``, or
+        None when the dir is absent or empty or of another format (the
+        caller rebuilds from codes then)."""
+        if not os.path.isdir(directory):
+            return None
+        mgr = CheckpointManager(directory, keep_n=2)
+        step = mgr.latest_step()
+        if step is None:
+            return None
+        arrays, extra = mgr.restore_arrays(step)
+        if extra.get("kind") != "fm_index" or extra.get("sb") != SB \
+                or extra.get("format") != FM_FORMAT:
+            return None
+        return cls.from_numpy(by_key(arrays), extra, device=device)
 
     # ------------------------------------------------------------- stats
     def resident_bytes(self) -> int:

@@ -10,8 +10,9 @@ Every occurrence ends in exactly one tier: the base reports ``g + plen
 memtable what ends past the last run.  A run's store is built over its
 overlap window (the last ``max_query_len - 1`` symbols before it) plus
 its codes, padded with symbol 0 to a power-of-two length; the two-sided
-rule makes the padding inert.  Persistence (``Run.restore``) is not
-ported yet.
+rule makes the padding inert.  A persisted run keeps its suffix array
+(``Run.sa_padded``), so ``Run.restore`` brings the index back without a
+sort.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ import torch
 
 from repro_torch.core import query as Q
 from repro_torch.core.tablet import (TabletStore, TierStack,
-                                     build_tablet_store, stack_tier_stores)
+                                     build_tablet_store, stack_tier_stores,
+                                     store_from_arrays)
 from repro_torch.device import DeviceLike
 
 
@@ -136,6 +138,32 @@ class Run:
                 device=self.device)
             self._sa_host = self._store.sa.cpu().numpy()
         return self._store
+
+    @property
+    def sa_padded(self) -> np.ndarray:
+        """The run's full suffix array over its padded text, int32 on the
+        host (persisted so ``open`` restores the index, not rebuilds
+        it)."""
+        self._ensure_store()
+        return self._sa_host
+
+    @classmethod
+    def restore(cls, tail: np.ndarray, codes: np.ndarray, sa_padded, *,
+                start: int, is_dna: bool, max_query_len: int,
+                device: torch.device) -> "Run":
+        """A run from persisted arrays (no suffix sort); without
+        ``sa_padded`` its index is built lazily."""
+        run = cls(tail, codes, start=start, is_dna=is_dna,
+                  max_query_len=max_query_len, device=device)
+        if sa_padded is not None:
+            text = np.concatenate([run.tail, run.codes])
+            n = int(text.shape[0])
+            padded = np.pad(text, (0, bucket_rows(n) - n))
+            run._store = store_from_arrays(
+                padded, np.asarray(sa_padded, np.int32), is_dna=is_dna,
+                max_query_len=max_query_len, device=device)
+            run._sa_host = run._store.sa.cpu().numpy()
+        return run
 
     def match_positions(self, patt, plen) -> list[np.ndarray]:
         """Global start positions, ascending, of exactly the occurrences

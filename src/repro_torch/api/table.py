@@ -1,6 +1,7 @@
-"""``SuffixTable`` — the in-memory subset of ``repro.api.table``.
+"""``SuffixTable`` — the port of ``repro.api.table`` on one device.
 
-Build a table over a text (:meth:`SuffixTable.from_codes`, on ``cuda``
+Build a table over a text (:meth:`SuffixTable.from_codes` in memory, or
+:meth:`SuffixTable.create` persisted under a catalog root; on ``cuda``
 unless ``device`` says otherwise), read it with :meth:`count` /
 :meth:`contains` / :meth:`scan` / :meth:`locate` / :meth:`locate_range`,
 and write it with :meth:`append` into the memtable and
@@ -14,21 +15,37 @@ compressed FM index (``api.fm.FMIndex``) and drops the live suffix array
 and the device text; base reads then run the FM backward search, and
 text positions come from LF walks on the device.
 
-Not ported yet, and raising ``NotImplementedError`` when asked for:
-persistence (``root``, ``create``/``open``/``flush``), the commit log
-(``wal``), major compaction (``compact``, ``max_runs``) and meshes.
+Major compaction (:meth:`compact`, automatic at ``max_runs``) folds the
+runs and the memtable into the base by merging (``api.compaction``); a
+frozen table stays frozen across it.  A persistent table (``create`` /
+``open``) publishes an atomic snapshot (``checkpoint.manager``) at every
+seal, compaction, freeze and :meth:`flush`, and logs every append to
+its commit log (``api.wal``) before acking it; :meth:`open` replays the
+log's tail.  The on-disk format is the reference's: a table written by
+either package opens in the other.
+
+Not ported yet, and raising ``NotImplementedError`` when asked for: the
+staged out-of-core build (``create(staged=True)``, ``max_device_bytes``,
+``spill_dir``), meshes and the metrics feed (``start_metrics``).
 """
 from __future__ import annotations
 
+import os
+import shutil
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch.api.fm import MAX_VOCAB, FMIndex
+from repro_torch.api.catalog import (Catalog, _check_name, default_root,
+                                     table_fm_dir, table_wal_dir)
+from repro_torch.api.compaction import merge_delta_sa
+from repro_torch.api.fm import DEFAULT_SAMPLE_RATE, MAX_VOCAB, FMIndex
 from repro_torch.api.memtable import Memtable
 from repro_torch.api.runs import Run, TierSet, logical_tail
+from repro_torch.api.wal import WriteAheadLog
+from repro_torch.checkpoint.manager import CheckpointManager, by_key
 from repro_torch.core import codec
 from repro_torch.core.planner import ScanOutcome, ScanPlanner, TopKCache
 from repro_torch.core.query import MatchResult
@@ -38,9 +55,11 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.serving.trace import Tracer
 
 # keyword arguments of repro's SuffixTable that this slice does not port
-_UNPORTED = ("root", "version", "keep_n", "wal", "group_commit_ms",
-             "max_runs", "distributed_build", "capacity_factor",
-             "routed_min_batch", "mesh")
+_UNPORTED = ("distributed_build", "capacity_factor", "routed_min_batch",
+             "mesh")
+# create() options of the staged out-of-core build
+_STAGED = ("max_device_bytes", "spill_dir", "build_chunk_rows",
+           "shard_rows")
 
 
 def _check_unported(kw: dict) -> None:
@@ -48,7 +67,7 @@ def _check_unported(kw: dict) -> None:
         if k in _UNPORTED:
             raise NotImplementedError(
                 f"SuffixTable({k}=...) is not ported to repro_torch yet "
-                f"(in-memory, single-device tables only)")
+                f"(single-device tables only)")
         raise TypeError(f"unexpected keyword argument {k!r}")
 
 
@@ -69,28 +88,53 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _build_sa(codes: np.ndarray, dev: torch.device):
+    """The base SA over ``codes`` on ``dev`` and the ``stats()["build"]``
+    record of its construction."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    sa = build_suffix_array(codec.as_tensor(codes, dev))
+    _sync(dev)
+    elapsed = time.perf_counter() - t0
+    n = int(codes.shape[0])
+    return sa, {"mode": "in_memory", "n_bases": n, "elapsed_s": elapsed,
+                "bases_per_s": n / elapsed if elapsed > 0 else 0.0}
+
+
 class SuffixTable:
-    """A mutable, in-memory suffix-array table on one device."""
+    """A named, versioned, mutable suffix-array table on one device.
+
+    Construct through :meth:`create` / :meth:`open` (persistent) or
+    :meth:`from_codes` / :meth:`from_store` (in memory)."""
 
     def __init__(self, codes: np.ndarray, sa_real, *, is_dna: bool,
                  max_query_len: int = 128, name: Optional[str] = None,
-                 cache_size: int = 4096,
+                 root: Optional[str] = None, version: int = 0,
+                 cache_size: int = 4096, keep_n: int = 3,
                  memtable_limit: Optional[int] = None,
+                 max_runs: Optional[int] = None,
+                 wal: Optional[bool] = None, group_commit_ms: float = 0.0,
                  fm_threshold: Optional[int] = None,
                  device: DeviceLike = None,
                  _store: Optional[TabletStore] = None,
-                 _planner: Optional[ScanPlanner] = None, **unported):
+                 _planner: Optional[ScanPlanner] = None,
+                 _fm: Optional[FMIndex] = None, **unported):
         _check_unported(unported)
         self.name = name
+        self.root = root
+        self.version = int(version)
         self.is_dna = bool(is_dna)
         self.max_query_len = int(max_query_len)
+        self.keep_n = int(keep_n)
         self.cache_size = int(cache_size)
         self.memtable_limit = memtable_limit
+        self.max_runs = max_runs
         self.fm_threshold = fm_threshold
         self.fm: Optional[FMIndex] = None
         self.runs: list[Run] = []
         self._codes = np.asarray(codes)
         self.tracer = Tracer()
+        self.planner: Optional[ScanPlanner] = None
         if _store is not None:
             self.device = _store.device
             self.store = _store
@@ -98,19 +142,36 @@ class SuffixTable:
                 _store, cache_size=cache_size, tracer=self.tracer)
             if _planner is not None:
                 self.tracer = _planner.tracer
+        elif _fm is not None:                        # open(): frozen tier
+            self.device = _fm.device
+            self._attach_frozen(_fm)
         else:
             self.device = resolve_device(device)
-            self.store = store_from_arrays(
-                self._codes, sa_real, is_dna=self.is_dna,
-                max_query_len=self.max_query_len, device=self.device)
-            self.planner = ScanPlanner(self.store, cache_size=cache_size,
-                                       tracer=self.tracer)
+            self._attach(self._codes, sa_real)
         self.memtable = Memtable(self._codes, is_dna=self.is_dna,
                                  max_query_len=self.max_query_len,
                                  device=self.device)
         self._tiers: Optional[TierSet] = None
         self._tiers_valid = False
         self._cache = TopKCache(cache_size)
+        self._manager: Optional[CheckpointManager] = None
+        if self.root is not None and self.name is not None:
+            self._manager = CheckpointManager(
+                os.path.join(self.root, self.name), keep_n=self.keep_n)
+        # the commit log defaults on for persistent tables; create() and
+        # open() attach it once the snapshot exists, so it only ever
+        # covers appends the snapshot does not
+        if wal and self._manager is None:
+            raise ValueError("wal=True needs a persistent table (create/"
+                             "open with a root); in-memory tables have "
+                             "nothing to recover into")
+        self._wal_on = (self._manager is not None) if wal is None \
+            else bool(wal)
+        self.group_commit_ms = float(group_commit_ms)
+        self._wal: Optional[WriteAheadLog] = None
+        self._wal_seq = 0            # seq of the last logged/applied append
+        self._recovery: Optional[dict] = None
+        self._replaying = False
         self._build: Optional[dict] = None
 
     # -- construction --------------------------------------------------------
@@ -124,17 +185,10 @@ class SuffixTable:
         _check_unported({k: v for k, v in kw.items() if k in _UNPORTED})
         dev = resolve_device(device)
         codes, is_dna = _as_codes(codes, is_dna)
-        _sync(dev)
-        t0 = time.perf_counter()
-        sa = build_suffix_array(codec.as_tensor(codes, dev))
+        sa, build = _build_sa(codes, dev)
         table = cls(codes, sa, is_dna=is_dna, max_query_len=max_query_len,
                     device=dev, **kw)
-        _sync(dev)
-        elapsed = time.perf_counter() - t0
-        n = int(codes.shape[0])
-        table._build = {"mode": "in_memory", "n_bases": n,
-                        "elapsed_s": elapsed,
-                        "bases_per_s": n / elapsed if elapsed > 0 else 0.0}
+        table._build = build
         table._maybe_freeze()
         return table
 
@@ -151,17 +205,193 @@ class SuffixTable:
                    _store=store, _planner=planner, **kw)
 
     @classmethod
-    def create(cls, *args, **kw):
-        raise NotImplementedError("persistent tables (create) are not "
-                                  "ported to repro_torch yet")
+    def create(cls, name: str, codes, *, root: Optional[str] = None,
+               is_dna: Optional[bool] = None, max_query_len: int = 128,
+               overwrite: bool = False, staged: Optional[bool] = None,
+               device: DeviceLike = None, **kw) -> "SuffixTable":
+        """Build AND persist version 1 of a named table under ``root``
+        (``default_root()`` when None), registered in the root's
+        :class:`~repro_torch.api.catalog.Catalog`; the build runs on
+        ``device`` (``cuda`` when None).
+
+        Crash-safe order, the reference's: the catalog entry is written
+        BEFORE the snapshot, so a create that dies mid-persist leaves a
+        registered table without a published snapshot, which
+        ``Catalog.reconcile`` and a later ``create`` of the name remove
+        instead of refusing.  Only the in-memory builder is ported: the
+        staged build (``staged=True`` or any of ``max_device_bytes``,
+        ``spill_dir``, ``build_chunk_rows``, ``shard_rows``) raises
+        ``NotImplementedError``."""
+        staged_kw = {k: kw.pop(k) for k in _STAGED if k in kw}
+        if staged or (staged is None
+                      and any(v is not None for v in staged_kw.values())):
+            raise NotImplementedError(
+                "the staged out-of-core build (create(staged=True), "
+                "max_device_bytes, spill_dir) is not ported to "
+                "repro_torch yet")
+        _check_unported({k: v for k, v in kw.items() if k in _UNPORTED})
+        _check_name(name)
+        root = root or default_root()
+        catalog = Catalog(root)
+        table_dir = os.path.join(root, name)
+        if name in catalog or os.path.isdir(table_dir):
+            # only a published snapshot makes the table real; a bare dir
+            # or catalog entry is a crashed create's remnant
+            has_snapshot = (os.path.isdir(table_dir) and
+                            CheckpointManager(table_dir).latest_step()
+                            is not None)
+            if has_snapshot and not overwrite:
+                raise FileExistsError(
+                    f"table {name!r} already exists in {root!r} — "
+                    f"SuffixTable.open() it, or pass overwrite=True")
+            # a surviving higher step would shadow the fresh version 1
+            shutil.rmtree(table_dir, ignore_errors=True)
+        dev = resolve_device(device)
+        codes, is_dna = _as_codes(codes, is_dna)
+        sa, build = _build_sa(codes, dev)
+        table = cls(codes, sa, is_dna=is_dna, max_query_len=max_query_len,
+                    name=name, root=root, version=1, device=dev, **kw)
+        table._build = build
+        catalog.register(name, {"is_dna": table.is_dna,
+                                "max_query_len": table.max_query_len})
+        table._persist()
+        table._maybe_freeze()       # fm_threshold policy; re-persists frozen
+        table._open_wal(fresh=True)
+        return table
 
     @classmethod
-    def open(cls, *args, **kw):
-        raise NotImplementedError("persistent tables (open) are not "
-                                  "ported to repro_torch yet")
+    def open(cls, name: str, *, root: Optional[str] = None,
+             device: DeviceLike = None, **kw) -> "SuffixTable":
+        """Restore the latest persisted version of ``name`` onto
+        ``device`` (``cuda`` when None): the saved real-row SA is
+        re-padded, sealed runs come back with their saved indexes, the
+        memtable with its codes, a frozen base with its FM artifact
+        (rebuilt from the codes if the artifact is missing or stale) —
+        no suffix sort — then the commit log's tail is replayed."""
+        _check_name(name)
+        root = root or default_root()
+        table_dir = os.path.join(root, name)
+        if not os.path.isdir(table_dir):        # before CheckpointManager:
+            raise FileNotFoundError(            # its ctor mkdirs the path
+                f"no table {name!r} under {root!r}")
+        mgr = CheckpointManager(table_dir)
+        step = mgr.latest_step()
+        if step is None:
+            raise FileNotFoundError(
+                f"no persisted version of table {name!r} under {root!r}")
+        arrays, extra = mgr.restore_arrays(step)
+        arrays = by_key(arrays)
+        dev = resolve_device(device)
+        is_dna = bool(extra["is_dna"])
+        fm = None
+        if extra.get("frozen"):
+            fm = FMIndex.load(table_fm_dir(root, name), device=dev)
+            if fm is None or fm.n != int(arrays["codes"].shape[0]):
+                fm = FMIndex.build(
+                    arrays["codes"], None, is_dna=is_dna,
+                    sample_rate=int(extra.get("fm_sample_rate")
+                                    or DEFAULT_SAMPLE_RATE), device=dev)
+        table = cls(arrays["codes"], arrays["sa_real"], is_dna=is_dna,
+                    max_query_len=int(extra["max_query_len"]), name=name,
+                    root=root, version=int(extra["version"]), device=dev,
+                    _fm=fm, **kw)
+        if extra.get("build"):
+            table._build = dict(extra["build"])
+        for i, rm in enumerate(extra.get("runs", [])):
+            table.runs.append(Run.restore(
+                arrays[f"run{i}_tail"], arrays[f"run{i}_codes"],
+                arrays.get(f"run{i}_sa"), start=int(rm["start"]),
+                is_dna=table.is_dna, max_query_len=table.max_query_len,
+                device=table.device))
+        if table.runs:
+            table._reset_memtable()
+        mem = arrays.get("mem_codes")
+        if mem is not None and mem.size:
+            table.memtable.append(mem)
+        # crash recovery: replay the commit-log tail (appends acked after
+        # this snapshot was published) through the memtable path
+        table._wal_seq = int(extra.get("wal_seq", 0))
+        table._open_wal(fresh=False)
+        table._maybe_freeze()       # the threshold may be new on this open
+        return table
+
+    def _attach(self, codes: np.ndarray, sa_real) -> None:
+        """(Re)build the base store on the table's device.  An existing
+        planner is re-bound in place, so references to it keep serving
+        the new text and its stats survive."""
+        self.store = store_from_arrays(
+            codes, sa_real, is_dna=self.is_dna,
+            max_query_len=self.max_query_len, device=self.device)
+        if self.planner is None:
+            self.planner = ScanPlanner(self.store,
+                                       cache_size=self.cache_size,
+                                       tracer=self.tracer)
+        else:
+            self.planner.rebind(self.store)     # also drops any FM binding
+        self.fm = None
 
     def flush(self) -> None:
-        raise NotImplementedError("flush is not ported to repro_torch yet")
+        """Persist the current state — base, sealed runs and the
+        memtable's codes — without compacting (same version, a fresh
+        snapshot).  Raises on an in-memory table."""
+        if self._manager is None:
+            raise RuntimeError(
+                "flush() on a non-persistent table — build it with "
+                "SuffixTable.create(...) to get durable storage")
+        self._persist()
+
+    def close(self) -> None:
+        """Release the commit log's file handle.  Reads keep working; a
+        later :meth:`append` raises (reopen the table to write)."""
+        if self._wal is not None:
+            self._wal.close()
+
+    def start_metrics(self, *args, **kw) -> None:
+        raise NotImplementedError("the metrics feed (serving/metrics.py) "
+                                  "is not ported to repro_torch yet")
+
+    def stop_metrics(self) -> None:
+        raise NotImplementedError("the metrics feed (serving/metrics.py) "
+                                  "is not ported to repro_torch yet")
+
+    def _persist(self) -> None:
+        """Publish the table's state as a fresh snapshot step, then seal
+        the commit log.  Always a FRESH step: saving over an existing
+        step deletes it before the rename, which would open a window
+        with no live snapshot; the table version rides in ``extra``."""
+        if self._manager is None:
+            return
+        if self.fm is not None:
+            # frozen: the FM artifact under fm/ is the base index on disk
+            sa_real = np.zeros((0,), np.int32)
+        else:
+            sa_real = self.store.sa[self.store.pad_count:].cpu().numpy()
+        state = {"codes": self._codes, "sa_real": sa_real,
+                 "mem_codes": self.memtable.appended}
+        runs_meta = []
+        for i, r in enumerate(self.runs):
+            state[f"run{i}_tail"] = r.tail
+            state[f"run{i}_codes"] = r.codes
+            state[f"run{i}_sa"] = r.sa_padded      # its index, no re-sort
+            runs_meta.append({"start": r.start, "length": r.length,
+                              "overlap": r.overlap})
+        extra = {"kind": "suffix_table", "name": self.name,
+                 "version": self.version, "is_dna": self.is_dna,
+                 "max_query_len": self.max_query_len,
+                 "n_base": self.n_base, "runs": runs_meta,
+                 "mem_len": self.memtable.size,
+                 "wal_seq": self._wal_seq,
+                 "frozen": self.fm is not None,
+                 "fm_sample_rate": (self.fm.sample_rate
+                                    if self.fm is not None else None),
+                 "build": self._build}
+        step = (self._manager.latest_step() or 0) + 1
+        self._manager.save(step, state, extra=extra)
+        if self._wal is not None:
+            # only once the snapshot is published may the log be
+            # truncated; a crash between the two is caught by the seq
+            # skip on replay
+            self._wal.seal(self._wal_seq + 1)
 
     def freeze(self, *, sample_rate: int = 32) -> "SuffixTable":
         """Move the base tier onto a frozen FM index: the BWT is derived
@@ -171,13 +401,17 @@ class SuffixTable:
         against the device SA's 4).
         Base reads then run the FM backward search; appends keep landing
         in the memtable and runs and merge through the fused tier path.
-        Idempotent."""
+        A persistent table saves the artifact under its ``fm/`` dir and
+        publishes a snapshot.  Idempotent."""
         if self.fm is not None:
             return self
         sa_real = self.store.sa[self.store.pad_count:].cpu().numpy()
         fm = FMIndex.build(self._codes, sa_real, is_dna=self.is_dna,
                            sample_rate=sample_rate, device=self.device)
         self._attach_frozen(fm)
+        if self._manager is not None:
+            fm.save(table_fm_dir(self.root, self.name), self.version)
+            self._persist()
         return self
 
     def _maybe_freeze(self) -> None:
@@ -206,11 +440,59 @@ class SuffixTable:
             sa=torch.zeros((0,), dtype=torch.int32, device=self.device),
             n_real=self.n_base, n_pad=self.n_base, is_dna=self.is_dna,
             max_query_len=self.max_query_len)
-        self.planner.rebind(self.store, fm=fm)
+        if self.planner is None:
+            self.planner = ScanPlanner(self.store,
+                                       cache_size=self.cache_size,
+                                       tracer=self.tracer, fm=fm)
+        else:
+            self.planner.rebind(self.store, fm=fm)
+
+    def _delta_codes(self) -> np.ndarray:
+        """All un-compacted symbols (sealed runs + memtable), in order."""
+        parts = [r.codes for r in self.runs]
+        if self.memtable.size:
+            parts.append(self.memtable.appended)
+        if not parts:
+            return np.zeros((0,), self._codes.dtype)
+        return np.concatenate(
+            [p.astype(self._codes.dtype, copy=False) for p in parts])
 
     def compact(self) -> int:
-        raise NotImplementedError("major compaction is not ported to "
-                                  "repro_torch yet")
+        """Major compaction: fold every sealed run and the memtable into
+        the base suffix array BY MERGING (``api.compaction``: prefix
+        doubling over the dirty range, the ``bounded_search`` kernel's
+        insertion search on CUDA), clear the delta tiers, bump and
+        persist the version.  A frozen table's SA is first rebuilt from
+        its index (LF walks), and the merged base is frozen again at the
+        same sample rate.  No-op when there is nothing to fold.  Returns
+        the version."""
+        delta = self._delta_codes()
+        if delta.size == 0:
+            return self.version
+        combined = np.concatenate([self._codes, delta])
+        was_frozen = self.fm is not None
+        if was_frozen:
+            fm_rate = self.fm.sample_rate
+            base_sa = self.fm.suffix_array()
+        else:
+            base_sa = self.store.sa[self.store.pad_count:]
+        sa_real = merge_delta_sa(combined, self.n_base, base_sa,
+                                 is_dna=self.is_dna,
+                                 max_query_len=self.max_query_len,
+                                 device=self.device)
+        del base_sa
+        self._codes = combined
+        self._attach(combined, sa_real)      # rebind bumps the planner
+        self.runs = []                       # cache and drops any FM
+        self._reset_memtable()
+        self._invalidate_caches()
+        self.version += 1
+        self._persist()
+        if was_frozen:
+            self.freeze(sample_rate=fm_rate)  # frozen is a sticky state
+        else:
+            self._maybe_freeze()
+        return self.version
 
     # -- introspection -------------------------------------------------------
     def __len__(self) -> int:
@@ -226,17 +508,30 @@ class SuffixTable:
         return self.n_base + sum(r.length for r in self.runs)
 
     @property
+    def is_persistent(self) -> bool:
+        return self._manager is not None
+
+    @property
     def is_frozen(self) -> bool:
         """True when the base tier serves from the FM index."""
         return self.fm is not None
 
+    @property
+    def write_generation(self) -> int:
+        """Monotone counter bumped by every write (append, seal,
+        compaction): the staleness stamp of cached results."""
+        return self._cache.generation
+
     def stats(self) -> dict:
-        """Observability snapshot: identity, ``tiers`` (symbols per LSM
-        level), the table's string ``cache``, ``build`` (how the base was
-        built), ``planner`` (``PlannerStats.as_dict()``) and ``latency``
-        (span histograms)."""
+        """Observability snapshot: identity (``name``, ``version``, ...),
+        ``tiers`` (symbols per LSM level), the table's string ``cache``,
+        ``build`` (how the base was built), ``planner``
+        (``PlannerStats.as_dict()``), ``latency`` (span histograms) and
+        ``wal`` (``enabled``, ``seq``, the log's counters, the last
+        recovery summary or None)."""
         return {
             "name": self.name,
+            "version": self.version,
             "is_dna": self.is_dna,
             "max_query_len": self.max_query_len,
             "device": str(self.device),
@@ -257,6 +552,13 @@ class SuffixTable:
             "build": self._build,
             "planner": self.planner.stats.as_dict(),
             "latency": self.tracer.snapshot(),
+            "wal": {
+                "enabled": self._wal is not None,
+                "seq": self._wal_seq,
+                "log": (self._wal.stats() if self._wal is not None
+                        else None),
+                "recovery": self._recovery,
+            },
         }
 
     def _resident_bytes(self) -> dict:
@@ -481,31 +783,115 @@ class SuffixTable:
         return self.scan(patterns, top_k=top_k).positions
 
     # -- write path ----------------------------------------------------------
+    def _open_wal(self, *, fresh: bool) -> None:
+        """Attach the table's commit log.  ``fresh=True`` (create) starts
+        an empty segment; ``fresh=False`` (open) recovers the live one:
+        torn tails are discarded by CRC, records the snapshot already
+        covers are skipped by sequence number, and the rest — the
+        appends acked after that snapshot — replay through the memtable
+        path.  The summary lands in ``stats()["wal"]["recovery"]``."""
+        if self._manager is None:
+            return
+        path = os.path.join(table_wal_dir(self.root, self.name), "wal.log")
+        if not self._wal_on:
+            # opting out with a live log on disk: move it aside, so a
+            # later wal=True open never splices its stale records into
+            # the text this table goes on to write
+            if os.path.exists(path):
+                os.replace(path, path + ".orphaned")
+            return
+        if fresh or not os.path.exists(path):
+            self._wal = WriteAheadLog.create(
+                path, start_seq=self._wal_seq + 1,
+                group_commit_ms=self.group_commit_ms)
+            return
+        wal = WriteAheadLog(path, group_commit_ms=self.group_commit_ms)
+        records, summary = wal.recover()
+        self._wal = wal
+        self._replaying = True      # no auto-seal mid-replay: a seal here
+        try:                        # would truncate records not yet applied
+            for seq, codes in records:
+                if seq <= self._wal_seq:
+                    summary.records_skipped += 1
+                    continue
+                if seq != self._wal_seq + 1:
+                    # the log starts past the snapshot: the records
+                    # between are gone, so nothing later can be applied
+                    summary.reason = "snapshot_gap"
+                    break
+                self._apply_append(codes)
+                self._wal_seq = seq
+                summary.records_replayed += 1
+        finally:
+            self._replaying = False
+        self._recovery = summary.as_dict()
+        if wal._last_written_seq != self._wal_seq:
+            # only stale or unreachable records remain: re-seal so the
+            # next append gets a contiguous sequence
+            wal.seal(self._wal_seq + 1)
+        if (self.memtable_limit is not None
+                and self.memtable.size >= self.memtable_limit):
+            self.minor_compact()    # deferred from replay; persists + seals
+
     def append(self, codes) -> int:
         """Append text (memtable write path); visible to every later read
-        with exact merged counts.  Returns the memtable size; seals the
-        memtable (:meth:`minor_compact`) at ``memtable_limit``."""
+        with exact merged counts.  On a persistent table the batch is
+        committed to the commit log and fsync'd before this returns.
+        Returns the memtable size; seals the memtable
+        (:meth:`minor_compact`) at ``memtable_limit``."""
+        size, token = self.append_nowait(codes)
+        self.wait_durable(token)
+        return size
+
+    def append_nowait(self, codes) -> tuple[int, Optional[int]]:
+        """The two-phase append under :meth:`append`: validate, log the
+        record (buffered, not yet fsync'd), apply it to the memtable, and
+        return ``(memtable_size, durability_token)``; pass the token to
+        :meth:`wait_durable` before acking."""
         if isinstance(codes, (str, bytes, bytearray)):
             if not self.is_dna:
                 raise TypeError("string appends are DNA-only; pass a code "
                                 "array for token tables")
             codes = codec.encode_dna(codes)
+        # validate BEFORE logging: a bad batch must fail the caller, not
+        # poison the log with a record that re-raises on every recovery
         codes = Memtable.validate_codes(codes, is_dna=self.is_dna)
         if codes.size == 0:
-            return self.memtable.size
+            return self.memtable.size, None
+        token = None
+        if self._wal is not None:
+            token = self._wal.append(codes, self._wal_seq + 1)
+        self._wal_seq += 1          # counted even unlogged: snapshots
+        self._apply_append(codes)   # persist it, keeping replay aligned
+        return self.memtable.size, token
+
+    def wait_durable(self, token: Optional[int]) -> None:
+        """Block until the append that returned ``token`` is on disk.
+        No-op for None (empty appends, tables without a log)."""
+        if token is not None and self._wal is not None:
+            self._wal.wait(token)
+
+    def _apply_append(self, codes: np.ndarray) -> None:
+        """Memtable apply and cache invalidation, shared by live appends
+        and log replay (which defers the ``memtable_limit`` seal)."""
         self.memtable.append(codes, _prevalidated=True)
         self._invalidate_caches()
-        if (self.memtable_limit is not None
+        if (not self._replaying and self.memtable_limit is not None
                 and self.memtable.size >= self.memtable_limit):
             self.minor_compact()
-        return self.memtable.size
 
     def minor_compact(self) -> int:
         """Seal the memtable into an immutable :class:`Run` and start a
-        fresh one.  No-op on an empty memtable.  Returns the run count."""
+        fresh one; a persistent table publishes a snapshot.  No-op on an
+        empty memtable.  Returns the run count; at ``max_runs`` the runs
+        are folded into the base by :meth:`compact` first."""
         if self.memtable.size == 0:
             return len(self.runs)
         self.runs.append(Run.from_memtable(self.memtable))
         self._reset_memtable()
         self._invalidate_caches()
+        if self.max_runs is not None and len(self.runs) >= self.max_runs:
+            self.compact()
+        elif self._manager is not None:
+            self._persist()
         return len(self.runs)

@@ -2,9 +2,10 @@
 ``repro.core.query``.
 
 A scan is a batched lower/upper-bound search over the sorted suffix
-array.  On a CUDA device a packed-DNA batch finds both bounds in ONE
-launch of the ``bounded_search`` kernel (``kernels/csrc/
-pattern_scan.cu``, a 17-ary search, one warp per query); everywhere
+array.  On a CUDA device a packed-DNA batch is ONE launch of the
+``bounded_search`` kernel (``kernels/csrc/pattern_scan.cu``, a 17-ary
+search, one warp per query) whose epilogue compares the reported row
+and writes the result; everywhere
 else (the CPU, token tables) the plain PyTorch binary search below
 runs, one compare per round, mirroring the reference line by line.
 Both return the same bounds, the exact partition points.
@@ -220,26 +221,20 @@ def query(store: "TabletStore", patt, plen) -> MatchResult:
     """Single-device scan batch.  ``patt`` is packed uint32 (B, W) for DNA
     or int32 codes (B, L) for token corpora; ``plen`` (B,) int32.
 
-    On CUDA a packed-DNA batch takes both kernel entry points: the
-    ``bounded_search`` kernel for the bounds, then the
-    ``pattern_compare`` kernel on the suffix at the lower bound — the
-    row the result reports — for ``found`` (the rows ``[lb, ub)`` are
-    exactly the matching rows, so that row matches iff ``ub > lb``)."""
+    On CUDA a packed-DNA batch is one launch of the search kernel with
+    the compare at the lower bound as its epilogue (``pattern_scan.
+    bounded_match_cuda``): the kernel writes the four fields, ``found``
+    from the suffix at ``sa[lb]`` (the rows ``[lb, ub)`` are exactly the
+    matching rows, so that row matches iff ``ub > lb``)."""
     if not (is_packed(store, patt) and patt.is_cuda):
         lb, ub = search_bounds_plain(store, patt, plen)
         return result_from_bounds(store, lb, ub)
     from repro_torch.kernels import pattern_scan
-    n = store.n_pad
-    lb, ub = pattern_scan.bounded_search_cuda(
-        store.sa, store.text_packed, store.n_real, patt, plen, n)
-    res = result_from_bounds(store, lb, ub)
-    pos = store.sa[lb.clamp(0, n - 1).to(torch.int64)]
-    window = codec.extract_window(store.text_packed, pos, patt.shape[-1])
-    _lt, _le, eq = pattern_scan.pattern_compare_cuda(
-        window, patt, plen, pos, n_real=store.n_real)
-    found = eq.to(torch.bool) & (lb < n)
-    return MatchResult(found=found, count=res.count,
-                       first_rank=res.first_rank, first_pos=res.first_pos)
+    found, count, first_rank, first_pos = pattern_scan.bounded_match_cuda(
+        store.sa, store.text_packed, store.n_real, patt, plen, store.n_pad,
+        store.pad_count)
+    return MatchResult(found=found, count=count, first_rank=first_rank,
+                       first_pos=first_pos)
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 ``repro.kernels``:
 
   pack2bit      — 2-bit DNA ingest packing          (csrc/pack2bit.cu)
-  pattern_scan  — masked packed compare, and the batched binary search
-                  built on it                       (csrc/pattern_scan.cu)
+  pattern_scan  — masked packed compare, and the 17-ary search of the
+                  base SA with that compare as its epilogue
+                                                    (csrc/pattern_scan.cu)
   tablet_scan   — 17-ary search over consecutive sorted rows
                                                     (csrc/tablet_scan.cu)
   tier_scan     — 17-ary search of every delta tier + the straddle rule

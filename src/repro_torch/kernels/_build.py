@@ -35,9 +35,13 @@ _fns: dict[tuple[str, str], object] = {}
 _lock = threading.Lock()
 
 # launches per kernel; each wrapper adds one where it launches, so a run
-# can show its main path went through the kernels
-LAUNCHES = {"pack2bit": 0, "pattern_compare": 0, "bounded_search": 0,
-            "tier_scan": 0, "tablet_scan": 0, "fm_scan": 0}
+# can show its main path went through the kernels.  A search launch
+# with the compare epilogue (pattern_scan.bounded_match_cuda) counts as
+# bounded_search and as pattern_compare_fused; pattern_compare counts
+# the standalone compare only.
+LAUNCHES = {"pack2bit": 0, "pattern_compare": 0, "pattern_compare_fused": 0,
+            "bounded_search": 0, "tier_scan": 0, "tablet_scan": 0,
+            "fm_scan": 0}
 
 
 def reset_launches() -> None:

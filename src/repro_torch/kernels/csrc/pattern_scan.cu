@@ -24,7 +24,15 @@
 // Blocks of 4 warps; lane 0 writes both bounds.  The result is the
 // exact partition point, the binary search's (query.
 // search_bounds_plain): pad rows sort first and are truncated, so the
-// predicates stay monotone.  ptxas (-Xptxas -v, sm_90a): registers,
+// predicates stay monotone.
+//
+// pattern_compare on the serving path is an epilogue of the same
+// launch: lane 0 of the warp that found (lb, ub) compares the staged
+// pattern with the suffix at sa[lb] (compare_text) and writes query.
+// MatchResult's four fields (found, count, first_rank, first_pos), so
+// no window tensor, second launch or host-side result assembly is left
+// (bounded_match_cuda).  The search alone (bounded_search_cuda, the
+// compaction merge's insertion search) passes null epilogue outputs.  ptxas (-Xptxas -v, sm_90a): registers,
 // shared memory and spills are printed by chip_smoke.py ([ptxas] line)
 // and recorded in PERF.md.
 #include "search.cuh"
@@ -96,8 +104,13 @@ bounded_search_kernel(const int32_t* __restrict__ sa, int n_rows,
                       long long n_real,
                       const uint32_t* __restrict__ patt,  // (B, W)
                       const int32_t* __restrict__ plen,   // (B,)
-                      int B, int W, int32_t* __restrict__ lb_out,
-                      int32_t* __restrict__ ub_out) {
+                      int B, int W, int pad_count,
+                      int32_t* __restrict__ lb_out,   // (B,) or null
+                      int32_t* __restrict__ ub_out,   // (B,) or null
+                      uint8_t* __restrict__ found_out,  // (B,) or null
+                      int32_t* __restrict__ count_out,
+                      int32_t* __restrict__ rank_out,
+                      int32_t* __restrict__ pos_out) {
   __shared__ uint32_t s_patt[WARPS][MAX_WORDS];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q = blockIdx.x * WARPS + warp;
@@ -113,9 +126,24 @@ bounded_search_kernel(const int32_t* __restrict__ sa, int n_rows,
                  n_real, lt, eq);
     return upper ? (lt || eq) : lt;
   }, lb, ub);
-  if (lane == 0) {
+  if (lane != 0) return;
+  if (lb_out != nullptr) {
     lb_out[q] = lb;
     ub_out[q] = ub;
+  }
+  if (found_out != nullptr) {
+    // the rows [lb, ub) are exactly the matching rows, so the row the
+    // result reports matches iff the suffix at sa[lb] equals the pattern
+    bool lt = false, eq = false;
+    int pos = -1;
+    if (lb < n_rows) {
+      pos = __ldg(sa + lb);
+      compare_text(text, n_words, (long long)pos, p, W, L, n_real, lt, eq);
+    }
+    found_out[q] = eq ? 1 : 0;
+    count_out[q] = ub - lb;
+    rank_out[q] = eq ? lb - pad_count : -1;
+    pos_out[q] = eq ? pos : -1;
   }
 }
 
@@ -133,14 +161,19 @@ extern "C" int pattern_compare_launch(const uint32_t* win,
   return (int)cudaGetLastError();
 }
 
+// lb/ub and the epilogue outputs (found .. pos) may each be null
+// (both of a group together); the epilogue runs when found is not.
 extern "C" int bounded_search_launch(const int32_t* sa, int n_rows,
                                      const uint32_t* text, long long n_words,
                                      long long n_real, const uint32_t* patt,
                                      const int32_t* plen, int B, int W,
-                                     int32_t* lb, int32_t* ub,
+                                     int pad_count, int32_t* lb, int32_t* ub,
+                                     uint8_t* found, int32_t* count,
+                                     int32_t* rank, int32_t* pos,
                                      cudaStream_t stream) {
   if (B <= 0) return 0;
   bounded_search_kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, 0, stream>>>(
-      sa, n_rows, text, n_words, n_real, patt, plen, B, W, lb, ub);
+      sa, n_rows, text, n_words, n_real, patt, plen, B, W, pad_count, lb,
+      ub, found, count, rank, pos);
   return (int)cudaGetLastError();
 }

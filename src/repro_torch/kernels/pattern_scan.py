@@ -1,7 +1,7 @@
 """CUDA masked packed compare and the two-bound search of the base
 suffix array — the port of ``repro.kernels.pattern_scan``.
 
-Two entry points in ``csrc/pattern_scan.cu``:
+Entry points over ``csrc/pattern_scan.cu``:
 
 * :func:`pattern_compare_cuda` — the exact ``pattern_compare_pallas``
   contract over explicit windows: ``(lt, le, eq)`` int8;
@@ -9,14 +9,19 @@ Two entry points in ``csrc/pattern_scan.cu``:
   _bounded_search`` in one launch: the 17-ary warp search of
   ``csrc/search.cuh`` (one warp per query), each probe gathering
   ``sa[row]`` and funnel-shifting the window out of the packed text.
-  ``query.query`` launches it on CUDA.
+  The compaction merge's insertion search launches it;
+* :func:`bounded_match_cuda` — the same launch with the compare at the
+  reported row as its epilogue: ``query.MatchResult``'s four fields
+  (``found``, ``count``, ``first_rank``, ``first_pos``) straight from
+  the kernel.  ``query.query`` launches it on CUDA, so the serving path
+  runs ``pattern_compare``'s function inside the search.
 
 Plain versions: ``ref.pattern_compare_ref``; for the search,
 :func:`bounded_search_plain` (the kernel's 17-ary search, through
 ``kernels.kary``) and ``query.search_bounds_plain`` (the reference's
-binary search).  All give the same bounds.  Layouts are the natural
-(B, W); the GPU kernels bound-check instead of padding to a block
-multiple.
+binary search), which all give the same bounds; for the epilogue,
+:func:`bounded_match_plain`.  Layouts are the natural (B, W); the GPU
+kernels bound-check instead of padding to a block multiple.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import ctypes
 import torch
 
 from repro_torch.core import codec
+from repro_torch.core import query as Q
 from repro_torch.kernels import _build, kary
 
 MAX_WORDS = 16  # pattern words a warp stages in shared memory (256 bases)
@@ -97,13 +103,12 @@ def bounded_search_plain(sa: torch.Tensor, text_packed: torch.Tensor,
     return lb.to(torch.int32), ub.to(torch.int32)
 
 
-def bounded_search_cuda(sa: torch.Tensor, text_packed: torch.Tensor,
-                        n_real: int, patterns: torch.Tensor,
-                        plen: torch.Tensor, n_rows: int):
-    """(lb, ub) int32 (B,): the lower (pred = lt) and upper (pred =
-    lt | eq) bounds of every query over the sorted rows ``sa[:n_rows]``,
-    exactly ``query.search_bounds_plain``.  patterns (B, W) uint32 with
-    W <= 16; plen (B,); text_packed the store's packed text."""
+def _search_launch(sa, text_packed, n_real: int, patterns, plen,
+                   n_rows: int, pad_count: int, *, bounds: bool,
+                   match: bool):
+    """One launch of ``bounded_search_kernel``: (lb, ub) when
+    ``bounds``, then (found, count, first_rank, first_pos) when
+    ``match``."""
     patt = _cuda_words(patterns, "patterns")
     text = _cuda_words(text_packed, "text_packed")
     sa = _cuda_i32(sa, "sa")
@@ -119,15 +124,71 @@ def bounded_search_cuda(sa: torch.Tensor, text_packed: torch.Tensor,
     if not 0 < n_rows <= sa.shape[0]:
         raise ValueError(f"n_rows={n_rows} out of range for "
                          f"{sa.shape[0]} SA rows")
-    lb = torch.empty(B, dtype=torch.int32, device=patt.device)
-    ub = torch.empty(B, dtype=torch.int32, device=patt.device)
+    dev = patt.device
+    i32 = [torch.empty(B, dtype=torch.int32, device=dev)
+           for _ in range(2 * bounds + 3 * match)]
+    found = (torch.empty(B, dtype=torch.bool, device=dev) if match
+             else None)
+    lb, ub = (i32[0], i32[1]) if bounds else (None, None)
+    count, rank, pos = i32[2 * bounds:] if match else (None,) * 3
+    out = ((lb, ub) if bounds else ()) + ((found, count, rank, pos)
+                                          if match else ())
     if B == 0:
-        return lb, ub
+        return out
+
+    def p(t):
+        return _build.ptr(t) if t is not None else None
+
     fn = _build.launcher("pattern_scan", "bounded_search_launch",
-                         [_P, _I, _P, _LL, _LL, _P, _P, _I, _I, _P, _P, _P])
+                         [_P, _I, _P, _LL, _LL, _P, _P, _I, _I, _I,
+                          _P, _P, _P, _P, _P, _P, _P])
     _build.check(fn(_build.ptr(sa), int(n_rows), _build.ptr(text),
                     int(text.shape[0]), int(n_real), _build.ptr(patt),
-                    _build.ptr(plen), B, W, _build.ptr(lb), _build.ptr(ub),
+                    _build.ptr(plen), B, W, int(pad_count), p(lb), p(ub),
+                    p(found), p(count), p(rank), p(pos),
                     _build.stream_of(patt)), "bounded_search")
     _build.LAUNCHES["bounded_search"] += 1
-    return lb, ub
+    if match:
+        _build.LAUNCHES["pattern_compare_fused"] += 1
+    return out
+
+
+def bounded_search_cuda(sa: torch.Tensor, text_packed: torch.Tensor,
+                        n_real: int, patterns: torch.Tensor,
+                        plen: torch.Tensor, n_rows: int):
+    """(lb, ub) int32 (B,): the lower (pred = lt) and upper (pred =
+    lt | eq) bounds of every query over the sorted rows ``sa[:n_rows]``,
+    exactly ``query.search_bounds_plain``.  patterns (B, W) uint32 with
+    W <= 16; plen (B,); text_packed the store's packed text."""
+    return _search_launch(sa, text_packed, n_real, patterns, plen, n_rows,
+                          0, bounds=True, match=False)
+
+
+def bounded_match_cuda(sa: torch.Tensor, text_packed: torch.Tensor,
+                       n_real: int, patterns: torch.Tensor,
+                       plen: torch.Tensor, n_rows: int, pad_count: int):
+    """The search of :func:`bounded_search_cuda` with the compare at the
+    lower bound as its epilogue, one launch: (found bool, count,
+    first_rank, first_pos int32), each (B,).  ``found`` is the suffix
+    at ``sa[lb]`` equal to the pattern (``lb < n_rows``); ``count = ub -
+    lb``; ``first_rank = lb - pad_count`` and ``first_pos = sa[lb]``
+    where found, -1 elsewhere — ``query.MatchResult``'s contract."""
+    return _search_launch(sa, text_packed, n_real, patterns, plen, n_rows,
+                          pad_count, bounds=False, match=True)
+
+
+def bounded_match_plain(store, patterns: torch.Tensor, plen: torch.Tensor):
+    """The epilogue's plain version on ``store``: the binary search
+    (``query.search_bounds_plain``), ``query.result_from_bounds`` and
+    the compare at the lower bound, as :func:`bounded_match_cuda`
+    computes them; (found, count, first_rank, first_pos)."""
+    lb, ub = Q.search_bounds_plain(store, patterns, plen)
+    res = Q.result_from_bounds(store, lb, ub)
+    n = store.n_pad
+    pos = store.sa[lb.clamp(0, n - 1).to(torch.int64)]
+    _lt, eq = Q.compare_packed(store.text_packed, store.n_real, pos,
+                               patterns, plen)
+    found = eq & (lb < n)
+    return (found, res.count,
+            torch.where(found, lb - store.pad_count, -1).to(torch.int32),
+            torch.where(found, pos, -1).to(torch.int32))

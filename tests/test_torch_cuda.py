@@ -345,3 +345,89 @@ def test_frozen_table_matches_live_on_the_card(cuda):
         chunk = C.random_dna(300, seed=50 + step)
         live.append(chunk)
         froz.append(chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["short_patterns", "full_width",
+                                  "longer_than_text", "pad_rows", "rows_1",
+                                  "rows_17"])
+def test_search_epilogue_kernel_matches_plain(cuda, case):
+    """The search launch with the compare epilogue against its plain
+    version (binary search + result_from_bounds + the compare at the
+    lower bound), exactly; ``query.query`` takes it, and the standalone
+    compare is not launched."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pattern_scan import (bounded_match_cuda,
+                                                  bounded_match_plain)
+    store, pats = _search_case(cuda, case)
+    _, pp, pl = Q.encode_patterns(pats, 128, device=cuda)
+    got = bounded_match_cuda(store.sa, store.text_packed, store.n_real, pp,
+                             pl, store.n_pad, store.pad_count)
+    torch.cuda.synchronize()
+    want = bounded_match_plain(store, pp, pl)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert torch.equal(got[0], got[1] > 0)
+    before = dict(_build.LAUNCHES)
+    res = Q.query(store, pp, pl)
+    assert _build.LAUNCHES["bounded_search"] == before["bounded_search"] + 1
+    assert _build.LAUNCHES["pattern_compare"] == before["pattern_compare"]
+    for f, w in zip(("found", "count", "first_rank", "first_pos"), want):
+        assert torch.equal(getattr(res, f), w), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random_dna", "repetitive", "small_delta",
+                                  "token"])
+def test_merge_on_the_card_matches_plain(cuda, case):
+    """``merge_delta_sa`` on the card (the bounded_search kernel's
+    insertion search over the clean rows, pack2bit for the combined text)
+    equals the plain merge on the CPU bit for bit."""
+    from repro_torch.api.compaction import merge_delta_sa
+    from repro_torch.core.suffix_array import build_suffix_array
+    from repro_torch.kernels import _build
+    rng = np.random.default_rng(3)
+    L, is_dna = 32, True
+    if case == "random_dna":
+        combined, n0 = C.random_dna(20000, seed=1), 18000
+    elif case == "repetitive":
+        combined = np.concatenate([np.zeros(3000, np.uint8),
+                                   C.encode_dna("ACGTACGTAAAC" * 4)])
+        combined, n0, L = combined, 2500, 16
+    elif case == "small_delta":
+        combined, n0, L = C.random_dna(5000, seed=2), 4999, 128
+    else:
+        combined = rng.integers(0, 300, 6000).astype(np.int32)
+        n0, is_dna = 5600, False
+    base_sa = build_suffix_array(torch.from_numpy(combined[:n0]))
+    before = dict(_build.LAUNCHES)
+    got = merge_delta_sa(combined, n0, base_sa.to(cuda), is_dna=is_dna,
+                         max_query_len=L, device=cuda)
+    torch.cuda.synchronize()
+    want = merge_delta_sa(combined, n0, base_sa, is_dna=is_dna,
+                          max_query_len=L, device="cpu")
+    assert torch.equal(got.cpu(), want)
+    searched = _build.LAUNCHES["bounded_search"] - before["bounded_search"]
+    assert searched == (1 if is_dna else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frozen", [False, True])
+def test_compact_on_the_card_matches_cpu(cuda, frozen):
+    from repro_torch.api import SuffixTable
+    codes = C.random_dna(6000, seed=8)
+    tables = [SuffixTable.from_codes(codes, is_dna=True, memtable_limit=500,
+                                     max_query_len=64, device=d)
+              for d in (cuda, "cpu")]
+    pats = Q.random_patterns(150, 1, 10, seed=8) + ["A", "ACGT"]
+    for t in tables:
+        if frozen:
+            t.freeze(sample_rate=8)
+        for step in range(3):
+            t.append(C.random_dna(300, seed=80 + step))
+        assert t.compact() == 1 and t.is_frozen == frozen
+    a, b = tables[1].scan(pats, top_k=4), tables[0].scan(pats, top_k=4)
+    for f in ("count", "first_pos", "positions"):
+        np.testing.assert_array_equal(getattr(b, f), getattr(a, f), f)
+    if not frozen:
+        assert torch.equal(tables[0].store.sa.cpu(), tables[1].store.sa)

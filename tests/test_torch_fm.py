@@ -354,7 +354,7 @@ def test_frozen_token_table_matches_reference(vocab):
         pt.append(more)
 
 
-def test_frozen_planner_modes_and_unported_persistence():
+def test_frozen_planner_modes_and_unported_persistence(tmp_path):
     pt = SuffixTable.from_codes(C.random_dna(500, seed=1), is_dna=True,
                                 device=CPU).freeze()
     patt, plen = pt.planner.encode(["ACG", "T"])
@@ -370,10 +370,13 @@ def test_frozen_planner_modes_and_unported_persistence():
             pt.planner.scan_encoded(patt, plen, mode=mode)
     with pytest.raises(ValueError, match="unknown"):
         pt.planner.scan_encoded(patt, plen, mode="nope")
-    with pytest.raises(NotImplementedError):
-        pt.fm.save("unused", 0)
-    with pytest.raises(NotImplementedError):
-        FMIndex.load("unused")
+    # persistence is ported: the artifact round-trips, a missing one
+    # loads as None (the caller rebuilds from codes)
+    pt.fm.save(str(tmp_path / "fm"), 0)
+    back = FMIndex.load(str(tmp_path / "fm"), device=CPU)
+    assert back.n == pt.fm.n and back.sample_rate == pt.fm.sample_rate
+    np.testing.assert_array_equal(back.bwt, pt.fm.bwt)
+    assert FMIndex.load(str(tmp_path / "missing"), device=CPU) is None
     assert pt.count(["A"])[0] > 0
     assert "dispatch_fm" in pt.stats()["latency"]
 

@@ -53,6 +53,33 @@ def test_dna_query_matches_reference(text_n, nq, max_len, num_tablets):
     assert (own.n_real, own.n_pad) == (js.n_real, js.n_pad)
 
 
+@pytest.mark.parametrize("text_n,min_rows,max_len", [
+    (64, 0, 8), (1500, 0, 40), (1000, 1200, 128), (20, 0, 30),
+])
+def test_search_epilogue_plain_matches_reference(text_n, min_rows, max_len):
+    """The plain version of ``bounded_search``'s compare epilogue (the
+    four fields from the search, the compare at the lower bound) equals
+    ``repro.core.query.query``, pad rows and patterns longer than the
+    text included; ``found`` is ``count > 0`` on every query."""
+    from repro_torch.kernels.pattern_scan import bounded_match_plain
+    codes = C.random_dna(text_n, seed=text_n + 1)
+    js = JT.build_tablet_store(codes, min_rows=min_rows)
+    store = _carry(js)
+    text = C.decode_dna(codes)
+    pats = Q.random_patterns(120, 1, max_len, seed=text_n) + [
+        "A", text[-3:], text[:min(len(text), 16)], text + "A"]
+    pats = [p[:max_len] for p in pats]
+    _, jp, jl = JQ.encode_patterns(pats, 128)
+    _, pp, pl = Q.encode_patterns(pats, 128, device=CPU)
+    got = bounded_match_plain(store, pp, pl)
+    want = JQ.query(js, jp, jl)
+    for f, g in zip(FIELDS, got):
+        w = np.asarray(getattr(want, f))
+        assert g.numpy().dtype == w.dtype, f
+        np.testing.assert_array_equal(g.numpy(), w, f)
+    assert torch.equal(got[0], got[1] > 0)
+
+
 @pytest.mark.parametrize("text_n,vocab", [(500, 7), (2000, 300)])
 def test_token_query_matches_reference(text_n, vocab):
     rng = np.random.default_rng(text_n)

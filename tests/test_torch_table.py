@@ -92,13 +92,22 @@ def test_stats_and_unported_options():
     assert s["planner"]["fused_batches"] == 1
     assert s["planner"]["base_only_batches"] == 1
     assert "dispatch" in s["latency"] and "dispatch_fused" in s["latency"]
-    for kw in ({"root": "x"}, {"wal": True}, {"max_runs": 2},
-               {"mesh": object()}):
+    for kw in ({"mesh": object()}, {"distributed_build": True}):
         with pytest.raises(NotImplementedError):
             SuffixTable.from_codes("ACGT" * 8, device=CPU, **kw)
-    for name in ("compact", "flush"):
+    # persistence, the commit log and compaction are ported: the
+    # reference's rules for an in-memory table hold
+    with pytest.raises(ValueError):
+        SuffixTable.from_codes("ACGT" * 8, device=CPU, wal=True)
+    with pytest.raises(RuntimeError):
+        pt.flush()
+    for name in ("start_metrics", "stop_metrics"):
         with pytest.raises(NotImplementedError):
             getattr(pt, name)()
+    assert SuffixTable.from_codes("ACGT" * 8, device=CPU,
+                                  max_runs=2).max_runs == 2
+    assert s["version"] == 0 and s["wal"]["enabled"] is False
+    assert pt.compact() == 1 and pt.stats()["tiers"]["base_rows"] == 288
     # the frozen tier is ported: the policy and freeze() both take it
     assert SuffixTable.from_codes("ACGT" * 8, device=CPU,
                                   fm_threshold=10).is_frozen

@@ -8,7 +8,10 @@ batches of 512) base-only, three appends of 2**17 bases (one sealed run
 and a memtable), then the workload again over base + run + memtable.
 Each workload runs twice: ``cold`` (the first pass, first launches
 included, as chip_smoke measures it) and ``warm`` (result cache cleared,
-kernels loaded).  Run from anywhere::
+kernels loaded); each records its queries/s, p50 / p99 ms, first batch
+and ``planner_ms``, the sum of the planner's dispatch spans
+(``dispatch_single`` / ``dispatch_fused``: the search launches and the
+work around them).  Run from anywhere::
 
     python3 tools/torch_live_ab.py [--rounds N] OLD_ROOT NEW_ROOT
 
@@ -16,7 +19,8 @@ Each ROOT is the root of a checkout whose ``src/`` holds ``repro_torch``;
 each builds its own kernels under its ``build/``.  ``--rounds N``
 repeats A B B A N times (default 1).  Prints one JSON line per run, then
 one ``[ab]`` line per (phase, pass): each checkout's median queries/s
-with its quartiles, the mean p50 ms, and the pairs the new checkout won
+with its quartiles, the mean p50 ms and planner_ms, and the pairs the
+new checkout won
 (run i of A against run i of B, so each round gives two pairs, one with
 each checkout first).  Imports neither jax nor the JAX package.
 """
@@ -63,6 +67,7 @@ def run_one(root: str) -> int:
     def serve(tag: str) -> None:
         for rep in ("cold", "warm"):
             table.clear_cache()
+            table.tracer.reset()
             lat = []
             t_all = time.perf_counter()
             for i in range(0, N_QUERIES, BATCH):
@@ -70,7 +75,11 @@ def run_one(root: str) -> int:
                 table.scan(patterns[i:i + BATCH])
                 lat.append((time.perf_counter() - t) * 1e3)
             total = time.perf_counter() - t_all
+            spans = table.tracer.snapshot()
             out[f"{tag}_{rep}"] = {
+                "planner_ms": sum(spans[k]["sum_ms"] for k in
+                                  ("dispatch_single", "dispatch_fused")
+                                  if k in spans),
                 "queries_per_s": N_QUERIES / total,
                 "p50_ms": float(np.percentile(lat, 50)),
                 "p99_ms": float(np.percentile(lat, 99)),
@@ -117,9 +126,11 @@ def main(argv: list[str]) -> int:
             qps[name] = np.array([r["queries_per_s"] for r in recs])
             q1, med, q3 = np.percentile(qps[name], [25, 50, 75])
             p50 = sum(r["p50_ms"] for r in recs) / len(recs)
+            planner = sum(r["planner_ms"] for r in recs) / len(recs)
             line.append(f"{name}_queries_per_s_median={med:.1f} "
                         f"{name}_q1={q1:.1f} {name}_q3={q3:.1f} "
-                        f"{name}_p50_ms={p50:.4f}")
+                        f"{name}_p50_ms={p50:.4f} "
+                        f"{name}_planner_ms={planner:.4f}")
         wins = int((qps["new"] > qps["old"]).sum())
         line.append(f"new_won={wins}/{len(qps['new'])}")
         print(" ".join(line), flush=True)
