@@ -46,11 +46,38 @@ through the public entry points at chromosome scale:
 12. ``[wal]``    one more append to the reopened table, no flush, and
                  ``open`` again: the commit log's replay must give the
                  appending table's answers (``[replayed]``);
-13. ``[kernels]`` every kernel's launches on each of the three paths
-                 (serving 1-8, compaction 9-10, persistence 11-12; the
-                 counts are set to 0 before each and read after it) and
+13. ``[long]``   patterns past 16 words: a third 2**26-base table at
+                 ``max_query_len=1024`` (W = 64) serves 512 patterns of
+                 1-1000 bases (half cut from the text) base only, then
+                 after an append, ``minor_compact`` and an append (the tier
+                 scan kernel); a frozen table over a 2**22-base slice
+                 serves its own 512 (``fm_scan``); counts against a host
+                 brute force for 16 patterns of each; then each search
+                 kernel against its plain versions at W = 17, 32 and 64
+                 (``[long:W=..]``) and its W = 64 times (``[long:kernel]``);
+14. ``[client]`` the live table attached to ``Database.in_memory()``:
+                 ``benchmarks/client_bench.py``'s three arms through the
+                 port (``per_call``: 128 callers, a batch of 1 each;
+                 ``coalesced``: ``query_many``; ``scheduler``: 128 threads
+                 calling ``submit``), 8 waves of the paper workload with
+                 ``top_k=5``, the string cache cleared before every wave;
+                 the three arms' answers must be bit-identical;
+15. ``[serve]``  ``python -m repro_torch.launch.serve`` in the process at
+                 2**26 bases, 10,000 queries in batches of 512, under a
+                 root in ``build/`` (removed at the end); an unflushed
+                 append; the launcher again on the root (the ``[open ]``
+                 path: the commit log must replay the append); then
+                 ``--dump-stats``.  ``[locate]`` is held against a host
+                 brute force, ``[stream]``'s page total against the
+                 one-shot count, ``[write ]``'s rise against the planted
+                 occurrences, and the feed must hold the reference's rows;
+16. ``[kernels]`` every kernel's launches on each of the six paths
+                 (serving 1-8, compaction 9-10, persistence 11-12, long 13,
+                 client 14, serve 15; the counts are set to 0 before each
+                 and read after it) and
                  its result held against its plain PyTorch version(s)
-                 on inputs taken from that run; a sample of counts is
+                 on inputs taken from that run, and timed, between
+                 phases 12 and 13; a sample of counts is
                  checked against a numpy brute-force scan of the text.
                  The three searches (``bounded_search``, ``tablet_scan``,
                  ``tier_scan``) also print their rounds and probes
@@ -68,18 +95,23 @@ outputs are held against their plain version on a whole batch.
 It prints one JSON line of per-kernel numbers (``ms``: time per call as
 the host issues them; ``device_ms``: device time of launches queued back
 to back, the L2 warm; ``cold_ms``: device time of a launch that follows
-a flush of the L2) and, last, the device line.  Any build, launch or mismatch
+a flush of the L2; ``ms_after_phases``: ``ms`` again after phase 15)
+and, last, the device line.  Any build, launch or mismatch
 failure exits non-zero without it.
 It imports neither jax nor the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -92,6 +124,13 @@ BATCH = 512
 MAX_QUERY_LEN = 128
 SLICE_ROWS = 2**18          # rows the dense plain tablet scan is held on
 FLUSH_WORDS = 2**26         # int32 words (256 MiB) written to flush the L2
+LONG_QUERY_LEN = 1024       # [long]: W = 64 pattern words
+LONG_MAX_PATTERN = 1000
+LONG_WIDTHS = (17, 32, 64)
+FROZEN_SLICE = 2**22        # [long]: bases of the frozen table
+LONG_TABLET_ROWS = 2**20    # [long]: sorted rows tablet_scan is held on
+CALLERS = 128               # [client]: callers per wave
+CLIENT_WAVES = 8
 
 # Published H100 SXM peaks (NVIDIA data sheet), used for the bounds.
 MEM_BYTES_PER_S = 3.35e12
@@ -257,6 +296,56 @@ def tier_traffic(torch, traces, sa, text_packed, run_lo, run_hi):
     return n_bytes, rounds, probes, words
 
 
+def used_words(torch, plen) -> int:
+    """Pattern words the masks keep, summed over the batch."""
+    return int(((plen.to(torch.int64) + 15) // 16).sum())
+
+
+def match_traffic(torch, kary, codec, store, patt, plen, lb, bin_trace):
+    """What ``bounded_match_cuda`` needs on ``store`` (each byte once):
+    the binary search's reads (``bin_trace``, :func:`search_traffic`)
+    plus the epilogue's compare at ``lb`` (its sa row and the text words
+    it reads, into the same dedup), the pattern words in use, plen and 13
+    B of outputs a query; ~4 operations per word compared.  Also the
+    bounds alone (8 B of outputs a query), and the epilogue's words and
+    positions."""
+    B, W = (int(d) for d in patt.shape)
+    s_bytes, rounds, probes, words = search_traffic(
+        torch, bin_trace, store.sa, store.text_packed)
+    lbc = lb.clamp(max=store.n_pad - 1).to(torch.int64)
+    pos_lb = store.sa[lbc]
+    _, _, w_lb = kary.compare(
+        codec.extract_window(store.text_packed, pos_lb, W)[None, :, None],
+        pos_lb[None, :, None], patt, plen, store.n_real)
+    w_lb = w_lb.reshape(-1)
+    e_bytes, _, _, _ = search_traffic(
+        torch, bin_trace + [(lbc, w_lb)], store.sa, store.text_packed)
+    fixed = 4 * used_words(torch, plen) + 4 * B
+    return {"bytes": e_bytes + fixed + 13 * B,
+            "ops": 4 * (words + int(w_lb.sum())),
+            "bounds_bytes": s_bytes + fixed + 8 * B, "bounds_ops": 4 * words,
+            "rounds": rounds, "probes": probes, "words": words,
+            "w_lb": w_lb, "pos_lb": pos_lb}
+
+
+def tier_runs(torch, TS, stack, got):
+    """The match runs past their padding that the tier kernel sweeps,
+    (run_lo, run_hi) (T, B), from its outputs ``got``."""
+    less = got[1].to(torch.int64)
+    run_hi = less + got[2]
+    run_lo = less.maximum(TS.pad_prefix(stack.pad_cnt)[:, None]).minimum(
+        run_hi)
+    return run_lo, run_hi
+
+
+def tier_fixed(torch, stack, plen) -> int:
+    """The tier scan's bytes besides the searches and sweeps: the
+    pattern words in use, plen, meta, two pad_cnt entries per tier and
+    16 B of outputs per (tier, query)."""
+    T, B = int(stack.sa.shape[0]), int(plen.shape[0])
+    return 4 * used_words(torch, plen) + 4 * B + 40 * T + 16 * T * B
+
+
 def ptxas_report(build_dir, names):
     """Registers, shared memory and spills of every kernel entry in the
     nvcc logs of ``names`` (built with -Xptxas -v), one dict each."""
@@ -306,6 +395,39 @@ def sorted_windows(torch, codec, store, n_words: int, chunk: int = 2**22):
                                    n_words)
         wt.view(torch.int32)[:, i:i + chunk] = win.view(torch.int32).T
     return wt
+
+
+def long_patterns(np, codec, Q, text, n: int, max_len: int, seed: int):
+    """``n`` patterns of 1..``max_len`` bases: the even ones cut from
+    ``text`` (so they match), the odd ones random."""
+    rng = np.random.default_rng(seed)
+    rand = Q.random_patterns(n, 1, max_len, seed=seed)
+    out = []
+    for i in range(n):
+        if i % 2:
+            out.append(rand[i])
+            continue
+        L = int(rng.integers(1, max_len + 1))
+        s = int(rng.integers(0, len(text) - L))
+        out.append(codec.decode_dna(text[s:s + L]))
+    return out
+
+
+def run_cli(main, argv) -> str:
+    """Run ``main(argv)`` in this process; return what it printed, and
+    print it too."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    return out
+
+
+def cli_line(out: str, prefix: str) -> str:
+    """The first line of ``out`` starting with ``prefix`` ('' if none)."""
+    return next((ln for ln in out.splitlines() if ln.startswith(prefix)),
+                "")
 
 
 def profile_batches(torch, table, patterns, tag: str) -> None:
@@ -666,55 +788,37 @@ def main() -> int:
     for k in ("pack2bit", "bounded_search", "tier_scan"):
         check(persist_launches[k] > 0, f"{k} launched on the persistence "
               f"path")
-    by_path = {"serve": launches, "compact": compact_launches,
-               "persist": persist_launches}
-    Q.query = search
-    print(f"[locate] {json.dumps({p: located[i].tolist() for i, p in enumerate(loc_pats)})}",
-          flush=True)
-    check(bool((merged_counts >= base_counts).all()),
-          "appends never lower a count")
-
-    # brute-force sample over the base text and the whole logical text
-    rng = np.random.default_rng(0)
-    sample = rng.choice(N_QUERIES, size=16, replace=False)
-    ok = True
-    for i in sample:
-        p = codec.encode_dna(patterns[i])
-        want_base = len(brute_positions(np, base, p))
-        want_all = len(brute_positions(np, text, p))
-        ok &= base_counts[i] == want_base and merged_counts[i] == want_all
-    print(f"[brute] patterns=16 match={str(bool(ok)).lower()}", flush=True)
-    check(bool(ok), "counts agree with a brute-force scan of the text")
-    for i, p in enumerate(loc_pats):
-        want = brute_positions(np, text, codec.encode_dna(p))[:5]
-        got = located[i][located[i] >= 0]
-        check(np.array_equal(got, want), f"locate({p!r}) = smallest positions")
 
     # ---------------- each kernel against its plain version -------------
+    # at W = 8, timed before the [long], [client] and [serve] phases add
+    # their tables, results and threads to the process; each row gains
+    # those paths' launches and its [long] numbers after the last phase
     dev = store.device
-    rows = []
+    rows, timed = [], []
     flush = torch.empty(FLUSH_WORDS, dtype=torch.int32, device=dev)
+
+    def times(kernel, reps) -> dict:
+        """``ms``: time per call of ``kernel`` as the host issues them,
+        host work of the wrapper included; ``device_ms``: device time of
+        launches back to back (L2 warm); ``cold_ms``: of a launch after
+        an L2 flush."""
+        return {"ms": cuda_ms(torch, kernel, reps),
+                "device_ms": cuda_ms(torch, kernel, reps, queue_ahead=True),
+                "cold_ms": cuda_ms(torch, kernel, reps, flush=flush)}
 
     def row(name, source, replaces, err, kernel, reps, plain_ms, n_bytes,
             n_ops, library_ms=None, **extra):
-        """One kernel's JSON row: ``ms`` is the time per call of
-        ``kernel`` as the host issues them, host work of the wrapper
-        included; ``device_ms`` the device time of launches back to back
-        (L2 warm), ``cold_ms`` of a launch after an L2 flush."""
+        """One kernel's JSON row, its times as :func:`times`."""
         b, by = bound_ms(n_bytes, n_ops)
         counted = "pattern_compare_fused" if name == "pattern_compare" \
             else name
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[counted],
-                     "launches_by_path": {k: v[counted]
-                                          for k, v in by_path.items()},
-                     "max_abs_err": err, "ms": cuda_ms(torch, kernel, reps),
-                     "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                     "library_ms": library_ms,
-                     "device_ms": cuda_ms(torch, kernel, reps,
-                                          queue_ahead=True),
-                     "cold_ms": cuda_ms(torch, kernel, reps, flush=flush),
+                     "max_abs_err": err, "plain_ms": plain_ms,
+                     "bound_ms": b, "bound_by": by,
+                     "library_ms": library_ms, **times(kernel, reps),
                      **extra})
+        timed.append((counted, kernel, reps))
         check(launches[counted] > 0, f"{name} launched on the main path")
         check(err == 0, f"{name} equals its plain version")
 
@@ -747,7 +851,7 @@ def main() -> int:
     # reads, into the same dedup), the pattern words in use, plen and
     # the outputs (13 B a query; 8 for the bounds alone); operations:
     # ~4 per word compared.
-    used_words = int(((plen.to(torch.int64) + 15) // 16).sum())
+    n_used = used_words(torch, plen)
     sargs = (store.sa, store.text_packed, store.n_real, patt, plen,
              store.n_pad)
     margs = sargs + (store.pad_count,)
@@ -762,20 +866,10 @@ def main() -> int:
     trace, bin_trace = [], []
     kary_bounds = bounded_search_plain(*sargs, trace=trace)
     bin_bounds = bounded_search_plain(*sargs, trace=bin_trace, arity=2)
-    s_bytes, s_bin_rounds, s_bin_probes, s_bin_words = search_traffic(
-        torch, bin_trace, store.sa, store.text_packed)
+    m = match_traffic(torch, kary, codec, store, patt, plen, lb, bin_trace)
+    w_lb, pos_lb = m["w_lb"], m["pos_lb"]
     _, s_rounds, s_probes, s_words = search_traffic(
         torch, trace, store.sa, store.text_packed)
-    lbc = lb.clamp(max=store.n_pad - 1).to(torch.int64)
-    pos_lb = store.sa[lbc]
-    _, _, w_lb = kary.compare(
-        codec.extract_window(store.text_packed, pos_lb, W)[None, :, None],
-        pos_lb[None, :, None], patt, plen, store.n_real)
-    w_lb = w_lb.reshape(-1)
-    e_bytes, _, _, _ = search_traffic(
-        torch, bin_trace + [(lbc, w_lb)], store.sa, store.text_packed)
-    fixed = 4 * used_words + 4 * B + 2 * B * 4
-    e_fixed = 4 * used_words + 4 * B + 13 * B
     bounds_only = (lambda: bounded_search_cuda(*sargs))
     row("bounded_search", "src/repro_torch/kernels/csrc/pattern_scan.cu",
         "src/repro/kernels/pattern_scan.py:55",
@@ -784,23 +878,23 @@ def main() -> int:
             max_abs_err(torch, bin_bounds, [plb, pub]), epi_err),
         lambda: bounded_match_cuda(*margs), 20,
         cuda_ms(torch, lambda: bounded_match_plain(store, patt, plen), 2),
-        e_bytes + e_fixed, 4 * (s_bin_words + int(w_lb.sum())),
-        rounds=s_rounds, binary_rounds=s_bin_rounds,
+        m["bytes"], m["ops"], rounds=s_rounds, binary_rounds=m["rounds"],
         kary_plain_ms=cuda_ms(torch, lambda: bounded_search_plain(*sargs),
                               2),
         bounds_only_ms=cuda_ms(torch, bounds_only, 20),
         bounds_only_device_ms=cuda_ms(torch, bounds_only, 20,
                                       queue_ahead=True),
         bounds_only_cold_ms=cuda_ms(torch, bounds_only, 20, flush=flush),
-        bounds_only_bound_ms=bound_ms(s_bytes + fixed, 4 * s_bin_words)[0])
+        bounds_only_bound_ms=bound_ms(m["bounds_bytes"],
+                                      m["bounds_ops"])[0])
     check(s_rounds <= kary.max_rounds(store.n_pad),
           "bounded_search ends within floor(log17 n_pad) + 1 rounds")
     print(f"[search] rows={store.n_pad} rounds={s_rounds} "
           f"max_rounds={kary.max_rounds(store.n_pad)} probes={s_probes} "
-          f"words={s_words} binary_rounds={s_bin_rounds} "
-          f"binary_probes={s_bin_probes} binary_words={s_bin_words} "
-          f"bound_bytes={e_bytes + e_fixed} "
-          f"bounds_only_bound_bytes={s_bytes + fixed} "
+          f"words={s_words} binary_rounds={m['rounds']} "
+          f"binary_probes={m['probes']} binary_words={m['words']} "
+          f"bound_bytes={m['bytes']} "
+          f"bounds_only_bound_bytes={m['bounds_bytes']} "
           f"epilogue_words={int(w_lb.sum())}", flush=True)
     print(f"[epilogue] queries={B} max_abs_err={epi_err} "
           f"found={int(epi[0].sum())} found_eq_count_gt_0="
@@ -817,24 +911,24 @@ def main() -> int:
     # above: its launches are the row's, its outputs are in max_abs_err,
     # and epilogue_bound_ms counts its own bytes (the sa row at lb, the
     # text words its compare reads, the pattern words, 13 B of outputs)
-    pos = store.sa[lb.clamp(0, store.n_pad - 1).to(torch.int64)]
-    win = codec.extract_window(store.text_packed, pos, W)
-    got = pattern_compare_cuda(win, patt, plen, pos, n_real=store.n_real)
-    want = ref.pattern_compare_ref(win.T, patt.T, plen, pos,
+    lb_pos = store.sa[lb.clamp(0, store.n_pad - 1).to(torch.int64)]
+    win = codec.extract_window(store.text_packed, lb_pos, W)
+    got = pattern_compare_cuda(win, patt, plen, lb_pos, n_real=store.n_real)
+    want = ref.pattern_compare_ref(win.T, patt.T, plen, lb_pos,
                                    n_real=store.n_real)
     row("pattern_compare", "src/repro_torch/kernels/csrc/pattern_scan.cu",
         "src/repro/kernels/pattern_scan.py:55",
         max(max_abs_err(torch, got, want), epi_err),
         lambda: pattern_compare_cuda(
-            win, patt, plen, pos, n_real=store.n_real), 50,
+            win, patt, plen, lb_pos, n_real=store.n_real), 50,
         cuda_ms(torch, lambda: ref.pattern_compare_ref(
-            win.T, patt.T, plen, pos, n_real=store.n_real), 5),
+            win.T, patt.T, plen, lb_pos, n_real=store.n_real), 5),
         2 * B * W * 4 + 2 * B * 4 + 3 * B, B * W,
         standalone_launches=launches["pattern_compare"],
         fused_into="bounded_search",
         epilogue_bound_ms=bound_ms(
             4 * B + text_bytes(torch, pos_lb, w_lb, store.text_packed)
-            + 4 * used_words + 13 * B, 4 * int(w_lb.sum()))[0])
+            + 4 * n_used + 13 * B, 4 * int(w_lb.sum()))[0])
 
     # tier_scan over the live run + memtable: the kernel reads the stacked
     # packed text and sa; held against its plain 17-ary version, the
@@ -863,11 +957,8 @@ def main() -> int:
     # the pattern words in use, plen, meta, two pad_cnt entries per tier
     # and the outputs; operations: ~4 per word compared.  The 17-ary
     # search's own reads are counted apart (kary_bytes).
-    fixed = 4 * used_words + 4 * B + 40 * T + 4 * T * B * 4
-    less = got[1].to(torch.int64)
-    run_hi = less + got[2]
-    run_lo = less.maximum(TS.pad_prefix(stack.pad_cnt)[:, None]).minimum(
-        run_hi)
+    fixed = tier_fixed(torch, stack, plen)
+    run_lo, run_hi = tier_runs(torch, TS, stack, got)
     t_bytes, t_bin_rounds, t_bin_probes, t_bin_words = tier_traffic(
         torch, bin_traces, stack.sa, stack.text_packed, run_lo, run_hi)
     k_bytes, t_rounds, t_probes, t_words = tier_traffic(
@@ -910,7 +1001,7 @@ def main() -> int:
     dense = ref.tablet_scan_ref(*part, n_real=store.n_real)
     torch.cuda.synchronize()
     dense_ms = (time.perf_counter() - t1) * 1e3
-    fixed = 4 * used_words + 4 * B + 3 * B * 4
+    fixed = 4 * n_used + 4 * B + 3 * B * 4
     b_bytes, b_bin_rounds, b_bin_probes, b_bin_words = tablet_traffic(
         torch, bin_trace)
     k_bytes, b_rounds, b_probes, b_words = tablet_traffic(torch, trace)
@@ -962,6 +1053,394 @@ def main() -> int:
           f"bwt_words={fa.bwt.shape[0]} occ_rows={fa.occ.shape[0]}",
           flush=True)
 
+    # ---------------- [long] path: patterns past 16 words ---------------
+    _build.reset_launches()
+
+    def serve_long(tag, t, pats):
+        """One batch of ``pats`` through ``t.scan``: (counts, first_pos)."""
+        live_results.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = t.scan(pats)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ok = all(torch.equal(r.found, r.count > 0) for r in live_results)
+        print(f"[{tag}] queries={len(pats)} "
+              f"max_len={max(map(len, pats))} "
+              f"words={codec.packed_length(t.max_query_len)} "
+              f"seconds={dt:.4f} found={int((out.count > 0).sum())} "
+              f"found_eq_count_gt_0={str(bool(ok)).lower()}", flush=True)
+        check(ok and (t.is_frozen or len(live_results) > 0),
+              f"{tag}: found == (count > 0) on every searched query")
+        return out.count, out.first_pos
+
+    long_pats = long_patterns(np, codec, Q, base, BATCH, LONG_MAX_PATTERN, 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ltable = SuffixTable.from_codes(base, is_dna=True,
+                                    max_query_len=LONG_QUERY_LEN,
+                                    memtable_limit=MEMTABLE_LIMIT)
+    torch.cuda.synchronize()
+    print(f"[long] n={TEXT_LEN} max_query_len={LONG_QUERY_LEN} "
+          f"build_seconds={time.perf_counter() - t0:.4f}", flush=True)
+    lc, lf = serve_long("long", ltable, long_pats)
+    ltable.append(appended[0])
+    ltable.minor_compact()
+    ltable.append(appended[1])
+    check(len(ltable.runs) == 1 and ltable.memtable.size == APPEND_LEN,
+          "[long]: one sealed run and one live memtable")
+    lmc, lmf = serve_long("long-merged", ltable, long_pats)
+    long_text = np.concatenate([base, appended[0], appended[1]])
+    fslice = base[:FROZEN_SLICE]
+    ftable = SuffixTable.from_codes(fslice, is_dna=True,
+                                    max_query_len=LONG_QUERY_LEN,
+                                    fm_threshold=FROZEN_SLICE)
+    check(ftable.is_frozen, "[long]: the slice's table is frozen")
+    fpats = long_patterns(np, codec, Q, fslice, BATCH, LONG_MAX_PATTERN, 6)
+    flc, flf = serve_long("long-frozen", ftable, fpats)
+    torch.cuda.synchronize()
+    long_launches = dict(_build.LAUNCHES)
+    print(f"[long-launches] " + " ".join(
+        f"{k}={v}" for k, v in long_launches.items()), flush=True)
+    for k in ("bounded_search", "tier_scan", "fm_scan"):
+        check(long_launches[k] > 0, f"{k} launched on the [long] path")
+    ok = True
+    for i in np.random.default_rng(1).choice(BATCH, size=16, replace=False):
+        for lp, ltext, (cnt, fst) in ((long_pats, base, (lc, lf)),
+                                      (long_pats, long_text, (lmc, lmf)),
+                                      (fpats, fslice, (flc, flf))):
+            pos = brute_positions(np, ltext, codec.encode_dna(lp[i]))
+            ok &= (cnt[i] == len(pos)
+                   and fst[i] == (pos[0] if len(pos) else -1))
+    print(f"[long-brute] patterns=16 tables=3 match={str(bool(ok)).lower()}",
+          flush=True)
+    check(bool(ok), "[long] counts and first_pos agree with a brute-force "
+          "scan of the text")
+
+    # ---------------- [client] path: the client frontend -----------------
+    _build.reset_launches()
+    from repro_torch.api import Database, Query
+    cdb = Database.in_memory(coalesce_window_ms=2.0)
+    cdb.attach("live", table)
+    waves = [[Query.scan("live", [p], top_k=5)
+              for p in Q.random_patterns(CALLERS, 1, 100, seed=100 + w)]
+             for w in range(CLIENT_WAVES)]
+    cdb.query(waves[0][0])                  # first use of every path
+    cdb.query_many(waves[0])
+    arms: dict = {}
+
+    def per_call(wave):
+        lat, got = [], []
+        for q in wave:
+            t = time.perf_counter()
+            got.append(cdb.query(q))
+            lat.append((time.perf_counter() - t) * 1e3)
+        return got, lat
+
+    def coalesced(wave):
+        t = time.perf_counter()
+        got = cdb.query_many(wave)
+        return got, [(time.perf_counter() - t) * 1e3] * len(wave)
+
+    def scheduler(wave):
+        got, lat = [None] * len(wave), [0.0] * len(wave)
+        gate = threading.Barrier(len(wave))
+
+        def caller(i):
+            gate.wait()
+            t = time.perf_counter()
+            got[i] = cdb.submit(wave[i]).result(timeout=120.0)
+            lat[i] = (time.perf_counter() - t) * 1e3
+
+        threads = [threading.Thread(target=caller, args=(i,))
+                   for i in range(len(wave))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(180.0)
+        return got, lat
+
+    for name, fn in (("per_call", per_call), ("coalesced", coalesced),
+                     ("scheduler", scheduler)):
+        s0 = cdb.scheduler.stats_snapshot()
+        got_all, lat_all, wall = [], [], 0.0
+        for wave in waves:
+            table.clear_cache()
+            t = time.perf_counter()
+            got, lat = fn(wave)
+            wall += time.perf_counter() - t
+            got_all += got
+            lat_all += lat
+        s1 = cdb.scheduler.stats_snapshot()
+        arms[name] = got_all
+        lat_all = np.asarray(lat_all)
+        if name == "per_call":
+            # a call's top-5 enumerates its whole SA slice on the host:
+            # the time of the patterns of <= 3 bases, apart
+            short = np.asarray([len(q.patterns[0]) <= 3
+                                for wave in waves for q in wave])
+            print(f"[client] arm=per_call short_patterns="
+                  f"{int(short.sum())} short_ms={lat_all[short].sum():.4f} "
+                  f"other_ms={lat_all[~short].sum():.4f}", flush=True)
+        print(f"[client] arm={name} callers={CALLERS} waves={CLIENT_WAVES} "
+              f"queries={len(got_all)} "
+              f"queries_per_s={len(got_all) / wall:.1f} "
+              f"p50_ms={np.percentile(lat_all, 50):.4f} "
+              f"p95_ms={np.percentile(lat_all, 95):.4f} "
+              f"batches={s1['batches'] - s0['batches']} "
+              f"coalesced_queries="
+              f"{s1['coalesced_queries'] - s0['coalesced_queries']} "
+              f"fast_path_queries="
+              f"{s1['fast_path_queries'] - s0['fast_path_queries']}",
+              flush=True)
+        check(all(r is not None and r.ok for r in got_all),
+              f"[client] {name}: every query answered")
+
+    def answer(r):
+        return (r.count.tolist(), r.first_pos.tolist(),
+                r.positions.tolist())
+
+    same = all(answer(a) == answer(b) == answer(c) for a, b, c in
+               zip(arms["per_call"], arms["coalesced"], arms["scheduler"]))
+    print(f"[client] identical={str(same).lower()} "
+          f"found={sum(int(r.count[0] > 0) for r in arms['per_call'])}",
+          flush=True)
+    check(same, "[client] counts, first_pos and top-5 positions are "
+          "bit-identical across per_call, coalesced and scheduler")
+    cdb.close()
+    torch.cuda.synchronize()
+    client_launches = dict(_build.LAUNCHES)
+    print(f"[client-launches] " + " ".join(
+        f"{k}={v}" for k, v in client_launches.items()), flush=True)
+    check(client_launches["bounded_search"] > 0,
+          "bounded_search launched on the [client] path")
+
+    # ---------------- [serve] path: the serving launcher -----------------
+    _build.reset_launches()
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serving.metrics import aggregate_metrics, read_lines
+    sroot = os.path.join(ROOT, "build", "chip_serve")
+    shutil.rmtree(sroot, ignore_errors=True)
+    cli = ["--text-len", str(TEXT_LEN), "--queries", str(N_QUERIES),
+           "--batch", str(BATCH), "--root", sroot, "--metrics-interval",
+           "0.5"]
+    planted = codec.encode_dna("GATTACA" * 3)
+    demo = np.concatenate([planted, codec.random_dna(993, seed=1)])
+    extra = codec.random_dna(4096, seed=9)
+    stexts = [base, np.concatenate([base, demo, extra])]
+    try:
+        outs, walls = [], []
+        for k in range(2):
+            if k == 1:        # an acked append that only the log holds
+                t = SuffixTable.open("dna_serve", root=sroot)
+                t.append(extra)
+                t.close()
+                del t
+            t0 = time.perf_counter()
+            outs.append(run_cli(serve_cli.main, cli))
+            walls.append(time.perf_counter() - t0)
+        varz = run_cli(serve_cli.main, ["--root", sroot, "--table",
+                                        "dna_serve", "--dump-stats"])
+        feed = read_lines(os.path.join(sroot, "dna_serve", "metrics.jsonl"))
+        agg = aggregate_metrics(os.path.join(sroot, "dna_serve",
+                                             "metrics.jsonl"))
+    finally:
+        shutil.rmtree(sroot, ignore_errors=True)
+    first, second = outs
+    check("[build]" in first and "[open ]" in second,
+          "[serve] the second run opened the first run's table")
+    want_len = TEXT_LEN + len(demo) + len(extra)
+    check(f"[wal  ] recovered: replayed=1 skipped=0 torn_bytes=0"
+          in second and f", {want_len} bases" in cli_line(second, "[open ] v"),
+          "[serve] the reopen replayed the unflushed append: nothing lost")
+    ok = True
+    for out, stext in zip(outs, stexts):
+        for ln in out.splitlines():
+            m = re.match(r"\[locate\] '(\w+)': count=(\d+) first_5=(.*)",
+                         ln)
+            if m:
+                pos = brute_positions(np, stext, codec.encode_dna(m[1]))
+                ok &= (int(m[2]) == len(pos)
+                       and json.loads(m[3]) == pos[:5].tolist())
+        ln = cli_line(out, "[stream]")
+        ok &= bool(ln) and int(ln.split(":")[1].split()[0]) == int(
+            ln.split("one-shot count")[1].strip(" )"))
+        m = re.search(r"count\(GATTACAGAT\.\.\.\) (\d+) -> (\d+)",
+                      cli_line(out, "[write ]"))
+        after = np.concatenate([stext, demo])
+        rise = (len(brute_positions(np, after, planted))
+                - len(brute_positions(np, stext, planted)))
+        ok &= m is not None and int(m[2]) - int(m[1]) == rise
+    print(f"[serve] create_run_seconds={walls[0]:.4f} "
+          f"open_run_seconds={walls[1]:.4f} feed_rows={len(feed)} "
+          f"emitters={agg['summary']['emitters']} "
+          f"feed_queries={agg['summary']['queries']} "
+          f"checks={str(bool(ok)).lower()}", flush=True)
+    check(bool(ok), "[serve] [locate] equals a brute-force scan, [stream]'s "
+          "pages total the one-shot count, [write ] rises by the planted "
+          "occurrences")
+    row_keys = {"role", "table", "pid", "queries", "p50_ms", "p95_ms",
+                "p99_ms", "stats", "ts"}
+    check(len(feed) >= 2 and all(set(r) == row_keys for r in feed)
+          and agg["summary"]["tables"] >= 1
+          and "[varz  ] table-proc dna_serve" in varz,
+          "[serve] the feed holds the reference's rows and --dump-stats "
+          "reads it")
+    torch.cuda.synchronize()
+    serve_launches = dict(_build.LAUNCHES)
+    print(f"[serve-cli-launches] " + " ".join(
+        f"{k}={v}" for k, v in serve_launches.items()), flush=True)
+    for k in ("pack2bit", "bounded_search", "tier_scan"):
+        check(serve_launches[k] > 0, f"{k} launched on the [serve] path")
+
+    by_path = {"serve": launches, "compact": compact_launches,
+               "persist": persist_launches, "long": long_launches,
+               "client": client_launches, "serve_cli": serve_launches}
+    Q.query = search
+    print(f"[locate] {json.dumps({p: located[i].tolist() for i, p in enumerate(loc_pats)})}",
+          flush=True)
+    check(bool((merged_counts >= base_counts).all()),
+          "appends never lower a count")
+
+    # brute-force sample over the base text and the whole logical text
+    rng = np.random.default_rng(0)
+    sample = rng.choice(N_QUERIES, size=16, replace=False)
+    ok = True
+    for i in sample:
+        p = codec.encode_dna(patterns[i])
+        want_base = len(brute_positions(np, base, p))
+        want_all = len(brute_positions(np, text, p))
+        ok &= base_counts[i] == want_base and merged_counts[i] == want_all
+    print(f"[brute] patterns=16 match={str(bool(ok)).lower()}", flush=True)
+    check(bool(ok), "counts agree with a brute-force scan of the text")
+    for i, p in enumerate(loc_pats):
+        want = brute_positions(np, text, codec.encode_dna(p))[:5]
+        got = located[i][located[i] >= 0]
+        check(np.array_equal(got, want), f"locate({p!r}) = smallest positions")
+
+    # [long]: each search kernel against its plain versions at W = 17, 32
+    # and 64 on the [long] tables (patterns cut to 16 W bases), and its
+    # times and bound at W = 64
+    def long_kernels() -> dict:
+        """name -> the [long] numbers of that kernel's row."""
+        wide = {k: {"wide_max_abs_err": 0} for k in
+                ("bounded_search", "tier_scan", "tablet_scan", "fm_scan")}
+        lst = ltable.store
+        lstack = ltable._tierset().stack
+        lmeta = ops.tier_meta(lstack)
+        lfa = ftable.fm.arrays
+        # tablet_scan's rows: LONG_TABLET_ROWS consecutive sorted rows
+        # around the lower bound of the first (cut, so matching) pattern
+        _, pp0, pl0 = Q.encode_patterns(long_pats[:1], LONG_QUERY_LEN,
+                                        device=dev)
+        lb0 = int(Q.search_bounds_plain(lst, pp0, pl0)[0][0]) \
+            - lst.pad_count
+        t_lo = min(max(lb0 - LONG_TABLET_ROWS // 2, 0),
+                   lst.n_real - LONG_TABLET_ROWS)
+        r0 = lst.pad_count + t_lo
+        lpos = lst.sa[r0:r0 + LONG_TABLET_ROWS]
+        lwt = codec.extract_window(lst.text_packed, lpos,
+                                   LONG_WIDTHS[-1]).T.contiguous()
+        for W in LONG_WIDTHS:
+            _, pp, pl = Q.encode_patterns([p[:16 * W] for p in long_pats],
+                                          16 * W, device=dev)
+            _, fpp, fpl = Q.encode_patterns([p[:16 * W] for p in fpats],
+                                            16 * W, device=dev)
+            Bw = int(pp.shape[0])
+            sargs = (lst.sa, lst.text_packed, lst.n_real, pp, pl, lst.n_pad)
+            lb, ub = bounded_search_cuda(*sargs)
+            plb, pub = Q.search_bounds_plain(lst, pp, pl)
+            e_bs = max(max_abs_err(torch, [lb, ub], [plb, pub]),
+                       max_abs_err(torch, bounded_match_cuda(*sargs,
+                                                             lst.pad_count),
+                                   bounded_match_plain(lst, pp, pl)))
+            pt = pp.T.contiguous()
+            targs = (pt, pl, lstack.text_packed, lstack.sa, lstack.pad_cnt,
+                     lmeta)
+            tgot = TS.tier_scan_cuda(*targs)
+            e_ts = max_abs_err(torch, tgot, TS.tier_scan_plain(*targs))
+            bargs = (pt, pl, lwt[:W], lpos)
+            bgot = tablet_scan_cuda(*bargs, n_real=lst.n_real)
+            e_tb = max_abs_err(torch, bgot, tablet_scan_plain(
+                *bargs, n_real=lst.n_real))
+            fgot = FM.fm_scan_cuda(fpp, fpl, lfa.bwt, lfa.occ, lfa.meta)
+            e_fm = max_abs_err(torch, fgot, FM.backward_search(lfa, fpp, fpl))
+            for k, e in (("bounded_search", e_bs), ("tier_scan", e_ts),
+                         ("tablet_scan", e_tb), ("fm_scan", e_fm)):
+                wide[k]["wide_max_abs_err"] = max(
+                    wide[k]["wide_max_abs_err"], e)
+            print(f"[long:W={W}] max_len={16 * W} bounded_search_err={e_bs} "
+                  f"tier_scan_err={e_ts} tablet_scan_err={e_tb} "
+                  f"fm_scan_err={e_fm} found={int((ub > lb).sum())} "
+                  f"tier_matches={int(tgot[2].sum())} "
+                  f"tablet_found={int((bgot[0] > 0).sum())} "
+                  f"fm_found={int((fgot[1] > fgot[0]).sum())}", flush=True)
+            if W != LONG_WIDTHS[-1]:
+                continue
+            # bounds at W = 64, counted as the W = 8 rows' are
+            bin_trace = []
+            bounded_search_plain(*sargs, trace=bin_trace, arity=2)
+            m = match_traffic(torch, kary, codec, lst, pp, pl, lb, bin_trace)
+            bin_traces = []
+            TS.tier_scan_plain(*targs, trace=bin_traces, arity=2)
+            t_bytes, _, _, t_words = tier_traffic(
+                torch, bin_traces, lstack.sa, lstack.text_packed,
+                *tier_runs(torch, TS, lstack, tgot))
+            tb_trace = []
+            tablet_scan_plain(*bargs, n_real=lst.n_real, trace=tb_trace,
+                              arity=2)
+            b_bytes, _, _, b_words = tablet_traffic(torch, tb_trace)
+            f_ranks, f_words, _, _ = fm_traffic(
+                torch, FM, lfa, FM.syms_from_packed(fpp, fpl, 16 * W))
+            u = used_words(torch, pl)
+            for k, fn, reps, nb, no in (
+                    ("bounded_search",
+                     lambda: bounded_match_cuda(*sargs, lst.pad_count), 20,
+                     m["bytes"], m["ops"]),
+                    ("tier_scan", lambda: TS.tier_scan_cuda(*targs), 50,
+                     t_bytes + tier_fixed(torch, lstack, pl), 4 * t_words),
+                    ("tablet_scan",
+                     lambda: tablet_scan_cuda(*bargs, n_real=lst.n_real), 50,
+                     b_bytes + 4 * u + 4 * Bw + 12 * Bw, 4 * b_words),
+                    ("fm_scan",
+                     lambda: FM.fm_scan_cuda(fpp, fpl, lfa.bwt, lfa.occ,
+                                             lfa.meta), 50,
+                     4 * f_ranks + 4 * f_words + Bw * W * 4 + Bw * 4
+                     + 2 * Bw * 4 + 32, 9 * f_words)):
+                b, by = bound_ms(nb, no)
+                wide[k].update({f"w{W}_{key}": v
+                                for key, v in times(fn, reps).items()},
+                               **{f"w{W}_bound_ms": b, f"w{W}_bound_by": by})
+                print(f"[long:kernel] {k} W={W} " + " ".join(
+                    f"{key}={v:.6g}" if isinstance(v, float) else f"{key}={v}"
+                    for key, v in wide[k].items()), flush=True)
+        return wide
+
+    # the rows gain every path's launches and, for a search kernel, its
+    # [long] numbers: the largest error at W = 17, 32 and 64, folded into
+    # max_abs_err, and its W = 64 times and bound.  ``ms_after_phases``
+    # times each W = 8 call as issued once more, with the later phases'
+    # state in the process
+    wide = long_kernels()
+    for r, (counted, kernel, reps) in zip(rows, timed):
+        long = wide.get(r["name"], {})
+        r["max_abs_err"] = max(r["max_abs_err"],
+                               long.get("wide_max_abs_err", 0))
+        r.update(long, launches_by_path={k: v[counted]
+                                         for k, v in by_path.items()},
+                 ms_after_phases=cuda_ms(torch, kernel, reps))
+        check(r["max_abs_err"] == 0,
+              f"{r['name']} equals its plain version at every width")
+    print(f"[after-phases] threads={threading.active_count()} " + " ".join(
+        f"{r['name']}:ms={r['ms']:.6f},ms_after_phases="
+        f"{r['ms_after_phases']:.6f}" for r in rows), flush=True)
+    for r in rows:
+        if "w64_device_ms" in r:
+            print(f"[width] {r['name']} " + " ".join(
+                f"{w}:ms={r[p + 'ms']:.6f},device_ms={r[p + 'device_ms']:.6f},"
+                f"cold_ms={r[p + 'cold_ms']:.6f},bound_ms="
+                f"{r[p + 'bound_ms']:.3g}"
+                for w, p in (("W=8", ""), ("W=64", "w64_"))), flush=True)
     print("[kernels] " + " ".join(
         f"{r['name']}:launches={r['launches']},match="
         f"{str(r['max_abs_err'] == 0).lower()}" for r in rows), flush=True)

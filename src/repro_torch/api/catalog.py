@@ -88,6 +88,14 @@ def table_fm_dir(root: str, name: str) -> str:
     return os.path.join(root, name, "fm")
 
 
+def table_tablets_dir(root: str, name: str) -> str:
+    """Directory of ``name``'s serving-plane tablet map (the reference's
+    ``manifest.json`` and ``serving.json``); inside the table directory,
+    so drop and reconcile remove it with the table.  The port has no
+    serving plane yet; the layout is the reference's."""
+    return os.path.join(root, name, "tablets")
+
+
 class Catalog:
     """Named-table registry over one root directory."""
 
@@ -186,6 +194,28 @@ class Catalog:
 
     def __contains__(self, name: str) -> bool:
         return name in self.load()["tables"]
+
+    def wal_dir(self, name: str) -> str:
+        """Where ``name``'s commit log lives (``api.wal``)."""
+        return table_wal_dir(self.root, name)
+
+    def fm_dir(self, name: str) -> str:
+        """Where ``name``'s frozen FM-index artifact lives (``api.fm``)."""
+        return table_fm_dir(self.root, name)
+
+    def tablets_dir(self, name: str) -> str:
+        """Where ``name``'s serving-plane tablet map lives."""
+        return table_tablets_dir(self.root, name)
+
+    def create_table(self, name: str, codes, **kw):
+        """``SuffixTable.create`` under this root."""
+        from repro_torch.api.table import SuffixTable
+        return SuffixTable.create(name, codes, root=self.root, **kw)
+
+    def open_table(self, name: str, **kw):
+        """``SuffixTable.open`` under this root."""
+        from repro_torch.api.table import SuffixTable
+        return SuffixTable.open(name, root=self.root, **kw)
 
     # -- table lifecycle -----------------------------------------------------
     def drop_table(self, name: str, *, missing_ok: bool = False) -> None:

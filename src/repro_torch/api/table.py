@@ -24,9 +24,14 @@ its commit log (``api.wal``) before acking it; :meth:`open` replays the
 log's tail.  The on-disk format is the reference's: a table written by
 either package opens in the other.
 
+:meth:`start_metrics` streams :meth:`stats` into the reference's
+``metrics.jsonl`` feed (``serving.metrics``).
+
 Not ported yet, and raising ``NotImplementedError`` when asked for: the
 staged out-of-core build (``create(staged=True)``, ``max_device_bytes``,
-``spill_dir``), meshes and the metrics feed (``start_metrics``).
+``spill_dir``) and meshes (``mesh``, ``distributed_build``).  The routed
+mode's knobs ``capacity_factor`` and ``routed_min_batch`` are taken and
+kept as the reference keeps them; on one device nothing reads them.
 """
 from __future__ import annotations
 
@@ -47,16 +52,17 @@ from repro_torch.api.runs import Run, TierSet, logical_tail
 from repro_torch.api.wal import WriteAheadLog
 from repro_torch.checkpoint.manager import CheckpointManager, by_key
 from repro_torch.core import codec
+from repro_torch.core.build_pipeline import BuildStats, in_memory_build_stats
 from repro_torch.core.planner import ScanOutcome, ScanPlanner, TopKCache
 from repro_torch.core.query import MatchResult
 from repro_torch.core.suffix_array import build_suffix_array
 from repro_torch.core.tablet import TabletStore, store_from_arrays
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.serving.metrics import MetricsEmitter, table_record
 from repro_torch.serving.trace import Tracer
 
-# keyword arguments of repro's SuffixTable that this slice does not port
-_UNPORTED = ("distributed_build", "capacity_factor", "routed_min_batch",
-             "mesh")
+# keyword arguments of repro's SuffixTable that need a mesh
+_UNPORTED = ("distributed_build", "mesh")
 # create() options of the staged out-of-core build
 _STAGED = ("max_device_bytes", "spill_dir", "build_chunk_rows",
            "shard_rows")
@@ -69,6 +75,16 @@ def _check_unported(kw: dict) -> None:
                 f"SuffixTable({k}=...) is not ported to repro_torch yet "
                 f"(single-device tables only)")
         raise TypeError(f"unexpected keyword argument {k!r}")
+
+
+def _as_batch(x, device: torch.device) -> torch.Tensor:
+    """An encoded batch (numpy or torch) as a tensor on ``device``:
+    packed DNA stays ``uint32``, token codes and lengths keep their
+    integer dtype.  A numpy batch is copied (it may be read-only, as a
+    view of another framework's array is)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.tensor(np.asarray(x), device=device)
 
 
 def _as_codes(codes, is_dna: Optional[bool]):
@@ -95,10 +111,8 @@ def _build_sa(codes: np.ndarray, dev: torch.device):
     t0 = time.perf_counter()
     sa = build_suffix_array(codec.as_tensor(codes, dev))
     _sync(dev)
-    elapsed = time.perf_counter() - t0
-    n = int(codes.shape[0])
-    return sa, {"mode": "in_memory", "n_bases": n, "elapsed_s": elapsed,
-                "bases_per_s": n / elapsed if elapsed > 0 else 0.0}
+    return sa, in_memory_build_stats(int(codes.shape[0]),
+                                     time.perf_counter() - t0)
 
 
 class SuffixTable:
@@ -115,6 +129,7 @@ class SuffixTable:
                  max_runs: Optional[int] = None,
                  wal: Optional[bool] = None, group_commit_ms: float = 0.0,
                  fm_threshold: Optional[int] = None,
+                 capacity_factor: float = 2.0, routed_min_batch: int = 64,
                  device: DeviceLike = None,
                  _store: Optional[TabletStore] = None,
                  _planner: Optional[ScanPlanner] = None,
@@ -126,6 +141,10 @@ class SuffixTable:
         self.is_dna = bool(is_dna)
         self.max_query_len = int(max_query_len)
         self.keep_n = int(keep_n)
+        # the routed mode's knobs: kept and reported, read by no
+        # single-device path
+        self.capacity_factor = float(capacity_factor)
+        self.routed_min_batch = int(routed_min_batch)
         self.cache_size = int(cache_size)
         self.memtable_limit = memtable_limit
         self.max_runs = max_runs
@@ -134,6 +153,7 @@ class SuffixTable:
         self.runs: list[Run] = []
         self._codes = np.asarray(codes)
         self.tracer = Tracer()
+        self._metrics: Optional[MetricsEmitter] = None
         self.planner: Optional[ScanPlanner] = None
         if _store is not None:
             self.device = _store.device
@@ -172,7 +192,7 @@ class SuffixTable:
         self._wal_seq = 0            # seq of the last logged/applied append
         self._recovery: Optional[dict] = None
         self._replaying = False
-        self._build: Optional[dict] = None
+        self._build: Optional[BuildStats] = None
 
     # -- construction --------------------------------------------------------
     @classmethod
@@ -296,7 +316,7 @@ class SuffixTable:
                     root=root, version=int(extra["version"]), device=dev,
                     _fm=fm, **kw)
         if extra.get("build"):
-            table._build = dict(extra["build"])
+            table._build = BuildStats.from_dict(extra["build"])
         for i, rm in enumerate(extra.get("runs", [])):
             table.runs.append(Run.restore(
                 arrays[f"run{i}_tail"], arrays[f"run{i}_codes"],
@@ -341,18 +361,32 @@ class SuffixTable:
         self._persist()
 
     def close(self) -> None:
-        """Release the commit log's file handle.  Reads keep working; a
-        later :meth:`append` raises (reopen the table to write)."""
+        """Release the commit log's file handle and stop the metrics
+        emitter.  Reads keep working; a later :meth:`append` raises
+        (reopen the table to write)."""
+        self.stop_metrics()
         if self._wal is not None:
             self._wal.close()
 
-    def start_metrics(self, *args, **kw) -> None:
-        raise NotImplementedError("the metrics feed (serving/metrics.py) "
-                                  "is not ported to repro_torch yet")
+    def start_metrics(self, path: str, interval_s: float = 1.0,
+                      name: Optional[str] = None) -> None:
+        """Stream :meth:`stats` into the ``metrics.jsonl`` feed at
+        ``path`` every ``interval_s`` seconds (one final row on
+        :meth:`stop_metrics`; ``interval_s <= 0``: that row only).  Each
+        row is ``serving.metrics.table_record(name, stats())``, the
+        reference's schema; ``name`` overrides ``self.name`` as the
+        row's identity.  A second call restarts the emitter."""
+        self.stop_metrics()
+        row_name = name if name is not None else self.name
+        self._metrics = MetricsEmitter(
+            path, lambda: table_record(row_name, self.stats()),
+            interval_s=interval_s)
 
     def stop_metrics(self) -> None:
-        raise NotImplementedError("the metrics feed (serving/metrics.py) "
-                                  "is not ported to repro_torch yet")
+        """Stop the feed emitter (it writes one final row)."""
+        if self._metrics is not None:
+            self._metrics.stop()
+            self._metrics = None
 
     def _persist(self) -> None:
         """Publish the table's state as a fresh snapshot step, then seal
@@ -384,7 +418,8 @@ class SuffixTable:
                  "frozen": self.fm is not None,
                  "fm_sample_rate": (self.fm.sample_rate
                                     if self.fm is not None else None),
-                 "build": self._build}
+                 "build": (self._build.to_dict()
+                           if self._build is not None else None)}
         step = (self._manager.latest_step() or 0) + 1
         self._manager.save(step, state, extra=extra)
         if self._wal is not None:
@@ -523,12 +558,16 @@ class SuffixTable:
         return self._cache.generation
 
     def stats(self) -> dict:
-        """Observability snapshot: identity (``name``, ``version``, ...),
-        ``tiers`` (symbols per LSM level), the table's string ``cache``,
-        ``build`` (how the base was built), ``planner``
-        (``PlannerStats.as_dict()``), ``latency`` (span histograms) and
-        ``wal`` (``enabled``, ``seq``, the log's counters, the last
-        recovery summary or None)."""
+        """Observability snapshot, the reference's schema plus
+        ``device``: identity (``name``, ``version``, ...), ``tiers``
+        (symbols per LSM level), the table's string ``cache``, ``build``
+        (``BuildStats``: how the base was built), ``planner``
+        (``PlannerStats.as_dict()``; ``bucketed_batches`` /
+        ``bucketed_queries`` count each table-level dispatch
+        (:meth:`scan_batch`, :meth:`locate_range`) and its queries,
+        ``pad_slots`` stays 0 since no batch is padded),
+        ``latency`` (span histograms) and ``wal`` (``enabled``, ``seq``,
+        the log's counters, the last recovery summary or None)."""
         return {
             "name": self.name,
             "version": self.version,
@@ -549,7 +588,8 @@ class SuffixTable:
                 "misses": self._cache.misses,
                 "generation": self._cache.generation,
             },
-            "build": self._build,
+            "build": (self._build.to_dict() if self._build is not None
+                      else None),
             "planner": self.planner.stats.as_dict(),
             "latency": self.tracer.snapshot(),
             "wal": {
@@ -622,9 +662,14 @@ class SuffixTable:
         """One fused merged dispatch: (merged MatchResult, TierScanResult
         | None, delta positions per query | None, base-only count).  The
         merged ``first_pos`` is not filled on a frozen table: every
-        caller derives text-order positions from the base rows itself."""
+        caller derives text-order positions from the base rows itself.
+        Each call counts one ``bucketed_batches`` and its queries, where
+        the reference counts its bucket-padded dispatches (the port pads
+        nothing: ``pad_slots`` stays 0)."""
         merged, tres = self.planner.scan_tiers(self._tierset(), patt, plen,
                                                first_pos=False)
+        self.planner.stats.bucketed_batches += 1
+        self.planner.stats.bucketed_queries += int(plen.shape[0])
         count = merged.count.cpu().numpy().astype(np.int64)
         if tres is None:
             return merged, None, None, count
@@ -663,8 +708,11 @@ class SuffixTable:
 
     def scan_encoded(self, patt, plen, *, mode: Optional[str] = None
                      ) -> MatchResult:
-        """Exact merged scan of an encoded batch; ``first_rank`` refers to
-        the BASE suffix array (-1 when only delta tiers match)."""
+        """Exact merged scan of an encoded batch (numpy or torch; moved to
+        the table's device); ``first_rank`` refers to the BASE suffix
+        array (-1 when only delta tiers match)."""
+        patt, plen = _as_batch(patt, self.device), _as_batch(plen,
+                                                             self.device)
         merged, _tres = self.planner.scan_tiers(self._tierset(), patt,
                                                 plen, mode=mode)
         return merged
@@ -681,11 +729,16 @@ class SuffixTable:
         return self.store.sa[lb:lb + cb].cpu().numpy().astype(np.int64)
 
     def scan_batch(self, patt, plen, top_k: int = 0) -> ScanOutcome:
-        """Merged scan of an encoded batch with **text-order** semantics:
-        exact counts, ``first_pos`` the smallest occurrence position,
-        ``positions`` the ``top_k`` smallest, ascending, -1 padded.  (The
-        reference pads the batch to a power-of-two bucket to bound jit
-        compilations; eager PyTorch compiles nothing, so it does not.)"""
+        """Merged scan of an encoded batch (numpy or torch; moved to the
+        table's device) with **text-order** semantics: exact counts,
+        ``first_pos`` the smallest occurrence position, ``positions`` the
+        ``top_k`` smallest, ascending, -1 padded.  The client frontend's
+        batch entry point (no string cache).  The reference pads the
+        batch to a power-of-two bucket to bound jit compilations; eager
+        PyTorch compiles nothing, so the port does not (``pad_slots``
+        stays 0)."""
+        patt, plen = _as_batch(patt, self.device), _as_batch(plen,
+                                                             self.device)
         B = int(plen.shape[0])
         if B == 0:
             return ScanOutcome(
@@ -895,3 +948,9 @@ class SuffixTable:
         elif self._manager is not None:
             self._persist()
         return len(self.runs)
+
+
+def open_table(name: str, *, root: Optional[str] = None,
+               **kw) -> SuffixTable:
+    """``SuffixTable.open`` under its older spelling, one call deep."""
+    return SuffixTable.open(name, root=root, **kw)

@@ -50,7 +50,13 @@ class ScanPlan:
 
 @dataclasses.dataclass
 class PlannerStats:
-    """Counters for observability; reset with :meth:`ScanPlanner.reset_stats`.
+    """Counters for observability, the reference's schema; reset with
+    :meth:`ScanPlanner.reset_stats`.  The ``retried_*`` counters count
+    the routed mode's sentinel retries and stay 0 on one device.
+    ``bucketed_batches`` / ``bucketed_queries`` count the table-level
+    dispatches (``SuffixTable.scan_batch``, ``locate_range``) and their
+    queries; ``pad_slots`` stays 0, since the port pads no batch to a
+    bucket.
     ``fused_batches`` crossed into the fused base + delta-tier read,
     ``base_only_batches`` took the no-delta fast path, ``tier_reads``
     counts logical tier visits per kind."""
@@ -58,6 +64,12 @@ class PlannerStats:
     queries: int = 0
     cache_hits: int = 0
     cache_misses: int = 0
+    retried_overflow: int = 0
+    retried_saturated: int = 0
+    retried_inexact_rank: int = 0
+    bucketed_batches: int = 0
+    bucketed_queries: int = 0
+    pad_slots: int = 0
     mode_counts: dict = dataclasses.field(
         default_factory=lambda: {MODE_SINGLE: 0, MODE_BROADCAST: 0,
                                  MODE_ROUTED: 0, MODE_FM: 0})

@@ -44,6 +44,22 @@ LAUNCHES = {"pack2bit": 0, "pattern_compare": 0, "pattern_compare_fused": 0,
             "fm_scan": 0}
 
 
+# widest pattern batch (words of 16 bases) the four searches take: each
+# stages its query's words in shared memory (MAX_PATTERN_WORDS of
+# csrc/search.cuh, which all four include)
+MAX_PATTERN_WORDS = 256
+
+
+def check_width(W: int, what: str) -> None:
+    """Raise for a pattern batch wider than the kernels take (never
+    truncate it)."""
+    if W > MAX_PATTERN_WORDS:
+        raise ValueError(
+            f"{what}: {W} pattern words > {MAX_PATTERN_WORDS} "
+            f"({16 * MAX_PATTERN_WORDS} bases), the widest batch the "
+            f"kernel stages in shared memory")
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0

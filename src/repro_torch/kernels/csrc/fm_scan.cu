@@ -30,8 +30,10 @@
 // chain of up to 16 W dependent memory round trips; the bytes and
 // operations are small (per rank one Occ entry and one 16-byte block,
 // ~40 operations).  Design, one round trip per step:
-// - the pattern's words are staged once per block in shared memory
-//   (s_patt[w][thread], conflict-free), and the next step's symbol is
+// - the pattern's words are staged once per block in dynamic shared
+//   memory (s_patt[w][thread], conflict-free; W <= MAX_PATTERN_WORDS =
+//   256 words, 4096 bases, so 32 KB a block at most: the wrapper raises
+//   for a wider batch), and the next step's symbol is
 //   taken from them by shift and mask while this step's loads are in
 //   flight: no load of the schedule sits in the chain;
 // - both ranks' addresses are formed first, then all four loads issue
@@ -45,13 +47,11 @@
 // 50 MB L2 across batches.  ptxas (-Xptxas -v, sm_90a): registers,
 // shared memory and spills are printed by chip_smoke.py ([ptxas] line)
 // and recorded in PERF.md.
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "search.cuh"  // MAX_PATTERN_WORDS, the widest batch taken (W)
 
 #define SB 64
 #define EVEN 0x55555555u
 #define THREADS 32       // queries per block
-#define MAX_WORDS 16     // pattern words staged per query
 
 // Issue the loads of rank(c, i): the checkpoint and the row's block.
 __device__ __forceinline__ void rank_load(const uint4* __restrict__ bwt4,
@@ -93,13 +93,13 @@ fm_scan_kernel(const uint32_t* __restrict__ patt,  // (B, W)
                int B, int W,
                int32_t* __restrict__ lo_out,
                int32_t* __restrict__ hi_out) {
-  __shared__ uint32_t s_patt[MAX_WORDS][THREADS];
+  extern __shared__ uint32_t s_patt[];  // (W, THREADS)
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * THREADS;
   const int nq = B - q0 < THREADS ? B - q0 : THREADS;
   // the block's nq x W words are contiguous: read them coalesced
   for (int k = tid; k < nq * W; k += THREADS)
-    s_patt[k % W][k / W] = patt[(long long)q0 * W + k];
+    s_patt[(k % W) * THREADS + k / W] = patt[(long long)q0 * W + k];
   __syncwarp();  // the block is one warp; no barrier follows
   const int q = q0 + tid;
   if (q >= B) return;
@@ -111,7 +111,8 @@ fm_scan_kernel(const uint32_t* __restrict__ patt,  // (B, W)
   auto sym = [&](int t) {
     int p = L - 1 - t;
     p = p < last ? p : last;
-    return (int)((s_patt[p >> 4][tid] >> (30 - 2 * (p & 15))) & 3u);
+    return (int)((s_patt[(p >> 4) * THREADS + tid] >> (30 - 2 * (p & 15)))
+                 & 3u);
   };
   int lo = 0, hi = meta[5];
   int c = steps > 0 ? sym(0) : 0;
@@ -138,7 +139,9 @@ extern "C" int fm_scan_launch(const uint32_t* patt, const int32_t* plen,
                               int W, int32_t* lo, int32_t* hi,
                               cudaStream_t stream) {
   if (B <= 0) return 0;
-  fm_scan_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
+  if (W < 0 || W > MAX_PATTERN_WORDS) return (int)cudaErrorInvalidValue;
+  fm_scan_kernel<<<(B + THREADS - 1) / THREADS, THREADS,
+                   (size_t)W * THREADS * sizeof(uint32_t), stream>>>(
       patt, plen, reinterpret_cast<const uint4*>(bwt), nblk, occ, meta, B,
       W, lo, hi);
   return (int)cudaGetLastError();

@@ -21,6 +21,14 @@
 // text word its compare may need (ceil(plen / 16) words, one more when
 // the position is not word aligned) before comparing any, and
 // funnel-shifts the window out of them: two round trips per round.
+// Widths: W <= 256 words (search.cuh).  The compare takes 16 words at a
+// time (compare_text: 17 independent loads, then 16 compares); a pattern
+// past 16 words takes the next 16 only while its prefix still compares
+// equal.  Batches with W <= 16 launch the one-chunk instance
+// (bounded_search_kernel<false>), whose code is the single-chunk compare
+// with no loop around it; wider batches the chunked one.  One kernel
+// for every width, with the chunk loop or with the first chunk peeled
+// out of it, took 12% more device time at W = 8 on an H100 (PERF.md).
 // Blocks of 4 warps; lane 0 writes both bounds.  The result is the
 // exact partition point, the binary search's (query.
 // search_bounds_plain): pad rows sort first and are truncated, so the
@@ -59,10 +67,13 @@ __global__ void pattern_compare_kernel(const uint32_t* __restrict__ win,
 }
 
 // lt / eq of the suffix at text position pos against a pattern of
-// plen bases (W words at patt), as compare(): every text word the
-// compare may read is loaded first, all independent of each other, and
-// the window words are funnel-shifted out of them (words past the end
-// of the text read 0, as text_word).
+// plen bases (W words at patt), as compare(), 16 words at a time: every
+// text word a chunk's compares may read is loaded first, all independent
+// of each other, and the window words are funnel-shifted out of them
+// (words past the end of the text read 0, as text_word).  The next
+// chunk is taken only while the prefix still compares equal; LONG =
+// false (W <= 16) compiles the first chunk alone.
+template <bool LONG>
 __device__ __forceinline__ void compare_text(const uint32_t* __restrict__ t,
                                              long long n_words,
                                              long long pos,
@@ -73,31 +84,37 @@ __device__ __forceinline__ void compare_text(const uint32_t* __restrict__ t,
   used = used < 0 ? 0 : (used > W ? W : used);
   const long long idx = pos >> 4;
   const uint32_t sh = 2u * (uint32_t)(pos & 15);
-  const int need = used + (sh != 0 && used > 0 ? 1 : 0);
-  uint32_t tw[MAX_WORDS + 1];
-#pragma unroll
-  for (int k = 0; k <= MAX_WORDS; ++k)
-    tw[k] = k < need && idx + k < n_words ? __ldg(t + idx + k) : 0u;
   bool pe = true;
   lt = false;
+  for (int w0 = 0; w0 < used && pe; w0 += CHUNK_WORDS) {
+    const int cu = used - w0 < CHUNK_WORDS ? used - w0 : CHUNK_WORDS;
+    const int need = cu + (sh != 0 ? 1 : 0);
+    const long long base = idx + w0;
+    uint32_t tw[CHUNK_WORDS + 1];
 #pragma unroll
-  for (int w = 0; w < MAX_WORDS; ++w) {
-    if (w < used && pe) {
-      const uint32_t m = word_mask(plen, w);
-      // (tw[w] << sh) | (tw[w + 1] >> (32 - sh)), and tw[w] for sh == 0
-      const uint32_t a = __funnelshift_l(tw[w + 1], tw[w], sh) & m;
-      const uint32_t b = patt[w] & m;
-      if (a != b) {
-        lt = a < b;
-        pe = false;
+    for (int k = 0; k <= CHUNK_WORDS; ++k)
+      tw[k] = k < need && base + k < n_words ? __ldg(t + base + k) : 0u;
+#pragma unroll
+    for (int w = 0; w < CHUNK_WORDS; ++w) {
+      if (w < cu && pe) {
+        const uint32_t m = word_mask(plen, w0 + w);
+        // (tw[w] << sh) | (tw[w + 1] >> (32 - sh)), and tw[w] for sh == 0
+        const uint32_t a = __funnelshift_l(tw[w + 1], tw[w], sh) & m;
+        const uint32_t b = patt[w0 + w] & m;
+        if (a != b) {
+          lt = a < b;
+          pe = false;
+        }
       }
     }
+    if (!LONG) break;
   }
   const bool truncated = pos + (long long)plen > n_real;
   eq = pe && !truncated;
   lt = lt || (pe && truncated);
 }
 
+template <bool LONG>
 __global__ void __launch_bounds__(WARPS * 32)
 bounded_search_kernel(const int32_t* __restrict__ sa, int n_rows,
                       const uint32_t* __restrict__ text, long long n_words,
@@ -111,19 +128,18 @@ bounded_search_kernel(const int32_t* __restrict__ sa, int n_rows,
                       int32_t* __restrict__ count_out,
                       int32_t* __restrict__ rank_out,
                       int32_t* __restrict__ pos_out) {
-  __shared__ uint32_t s_patt[WARPS][MAX_WORDS];
+  extern __shared__ uint32_t s_patt[];  // (WARPS, W)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q = blockIdx.x * WARPS + warp;
   if (q >= B) return;  // uniform per warp; no block barrier follows
-  if (lane < W) s_patt[warp][lane] = patt[(long long)q * W + lane];
-  __syncwarp();
-  const uint32_t* p = s_patt[warp];
+  uint32_t* p = s_patt + warp * W;
+  stage_pattern(p, patt + (long long)q * W, 1, W);
   const int L = plen[q];
   int lb, ub;
   warp_kary_bounds(n_rows, [&](int row, bool upper) {
     bool lt, eq;
-    compare_text(text, n_words, (long long)__ldg(sa + row), p, W, L,
-                 n_real, lt, eq);
+    compare_text<LONG>(text, n_words, (long long)__ldg(sa + row), p, W, L,
+                       n_real, lt, eq);
     return upper ? (lt || eq) : lt;
   }, lb, ub);
   if (lane != 0) return;
@@ -138,7 +154,8 @@ bounded_search_kernel(const int32_t* __restrict__ sa, int n_rows,
     int pos = -1;
     if (lb < n_rows) {
       pos = __ldg(sa + lb);
-      compare_text(text, n_words, (long long)pos, p, W, L, n_real, lt, eq);
+      compare_text<LONG>(text, n_words, (long long)pos, p, W, L, n_real, lt,
+                         eq);
     }
     found_out[q] = eq ? 1 : 0;
     count_out[q] = ub - lb;
@@ -172,8 +189,16 @@ extern "C" int bounded_search_launch(const int32_t* sa, int n_rows,
                                      int32_t* rank, int32_t* pos,
                                      cudaStream_t stream) {
   if (B <= 0) return 0;
-  bounded_search_kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, 0, stream>>>(
-      sa, n_rows, text, n_words, n_real, patt, plen, B, W, pad_count, lb,
-      ub, found, count, rank, pos);
+  if (W < 0 || W > MAX_PATTERN_WORDS) return (int)cudaErrorInvalidValue;
+  const dim3 grid((B + WARPS - 1) / WARPS), block(WARPS * 32);
+  const size_t smem = (size_t)WARPS * W * sizeof(uint32_t);
+  if (W <= CHUNK_WORDS)
+    bounded_search_kernel<false><<<grid, block, smem, stream>>>(
+        sa, n_rows, text, n_words, n_real, patt, plen, B, W, pad_count, lb,
+        ub, found, count, rank, pos);
+  else
+    bounded_search_kernel<true><<<grid, block, smem, stream>>>(
+        sa, n_rows, text, n_words, n_real, patt, plen, B, W, pad_count, lb,
+        ub, found, count, rank, pos);
   return (int)cudaGetLastError();
 }

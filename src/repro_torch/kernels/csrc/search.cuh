@@ -1,7 +1,8 @@
 // Device helpers shared by the scan kernels (pattern_scan.cu,
 // tablet_scan.cu, tier_scan.cu): the per-word pattern mask, the
 // funnel-shifted text word, the early-exit masked compare, and the
-// 17-ary two-bound warp search over sorted rows.
+// 17-ary two-bound warp search over sorted rows.  fm_scan.cu includes
+// it for the width limit alone.
 //
 // Words are big-endian 2-bit DNA (16 bases per uint32), so an unsigned
 // word compare is a 16-base lexicographic compare.  Word w of a query
@@ -9,6 +10,11 @@
 // r == 0 would need is undefined in C, hence the guard in word_mask.  A
 // suffix shorter than the pattern (pos + plen > n_real) is "less",
 // never "equal".
+//
+// Pattern widths: a warp stages its query's W pattern words in dynamic
+// shared memory (stage_pattern), W <= MAX_PATTERN_WORDS = 256 (4096
+// bases), so a block of 4 warps holds at most 4 KB.  The wrappers raise
+// for a wider batch; nothing is truncated.
 #pragma once
 
 #include <cstdint>
@@ -16,8 +22,19 @@
 
 #define BIG (1 << 30)    // "no match" sentinel of first_row / first_g
 #define FULL_MASK 0xFFFFFFFFu
-#define MAX_WORDS 16     // pattern words a warp stages in shared memory
+#define MAX_PATTERN_WORDS 256  // widest batch the searches take (W)
+#define CHUNK_WORDS 16   // words a compare loads before comparing any
 #define ARITY 17         // 16 splitters cut an interval into 17 parts
+
+// One warp copies its query's W pattern words (stride ``stride``
+// between words, 1 for a (B, W) batch, B for a (W, B) one) into ``dst``.
+// For W <= 32 this is one load a lane.
+__device__ __forceinline__ void stage_pattern(uint32_t* dst,
+                                              const uint32_t* __restrict__ src,
+                                              long long stride, int W) {
+  for (int w = threadIdx.x & 31; w < W; w += 32) dst[w] = src[w * stride];
+  __syncwarp();
+}
 
 __device__ __forceinline__ uint32_t word_mask(int plen, int w) {
   int r = plen - w * 16;

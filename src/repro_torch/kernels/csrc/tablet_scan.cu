@@ -25,7 +25,9 @@
 // round: 7 rounds for 2**26 rows where a binary search needs 27.  A
 // probe reads pos[row] and the words win[w * R + row] it compares, both
 // independent of each other.  Blocks of 4 warps; the pattern is staged
-// in shared memory per warp.  Lane 0 writes the three outputs: no
+// in shared memory per warp (W <= 256 words, search.cuh; the compare
+// walks the words with an early exit, so a wide pattern costs words
+// only while its prefix compares equal).  Lane 0 writes the three outputs: no
 // atomics and no preset outputs.  ptxas (-Xptxas -v, sm_90a): registers,
 // shared memory and spills are printed by chip_smoke.py ([ptxas] line)
 // and recorded in PERF.md.
@@ -42,13 +44,12 @@ tablet_scan_kernel(const uint32_t* __restrict__ patt,  // (W, B)
                    int32_t* __restrict__ count,        // (B,)
                    int32_t* __restrict__ less,
                    int32_t* __restrict__ first) {
-  __shared__ uint32_t s_patt[WARPS][MAX_WORDS];
+  extern __shared__ uint32_t s_patt[];  // (WARPS, W)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q = blockIdx.x * WARPS + warp;
   if (q >= B) return;  // uniform per warp; no block barrier follows
-  if (lane < W) s_patt[warp][lane] = patt[(long long)lane * B + q];
-  __syncwarp();
-  const uint32_t* p = s_patt[warp];
+  uint32_t* p = s_patt + warp * W;
+  stage_pattern(p, patt + q, B, W);
   const int L = plen[q];
   int lb, ub;
   warp_kary_bounds(R, [&](int row, bool upper) {
@@ -70,7 +71,9 @@ extern "C" int tablet_scan_launch(const uint32_t* patt, const int32_t* plen,
                                   int32_t* count, int32_t* less,
                                   int32_t* first, cudaStream_t stream) {
   if (B <= 0) return 0;
-  tablet_scan_kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, 0, stream>>>(
+  if (W < 0 || W > MAX_PATTERN_WORDS) return (int)cudaErrorInvalidValue;
+  tablet_scan_kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32,
+                       (size_t)WARPS * W * sizeof(uint32_t), stream>>>(
       patt, plen, win, pos, n_real, B, W, R, count, less, first);
   return (int)cudaGetLastError();
 }

@@ -33,7 +33,9 @@
 // Bound: latency.  Each search round is two dependent gathers (sa at
 // the splitter row, then the text words at that position); the bytes
 // are those of the probed rows and the match runs.  Design:
-//   1. one warp per (query, tier), blocks of 4 warps; lanes 0-15 and
+//   1. one warp per (query, tier), blocks of 4 warps, each staging its
+//      query's pattern in shared memory (W <= 256 words, search.cuh; the
+//      compare walks the words with an early exit); lanes 0-15 and
 //      16-31 search the two bounds (search.cuh warp_kary_bounds), 16
 //      splitters per round: 5 rounds for a 2**19-row tier where a binary
 //      search needs 20.  Probes read sa and the stacked packed text
@@ -68,7 +70,7 @@ tier_scan_kernel(const uint32_t* __restrict__ patt,   // (W, B)
                  int32_t* __restrict__ less,
                  int32_t* __restrict__ matches,
                  int32_t* __restrict__ first) {
-  __shared__ uint32_t s_patt[WARPS][MAX_WORDS];
+  extern __shared__ uint32_t s_patt[];                  // (WARPS, W)
   __shared__ int s_start[WARPS], s_len[WARPS];          // this block's runs
   __shared__ int s_cnt[WARPS][WARPS], s_min[WARPS][WARPS];  // [run][warp]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -83,9 +85,8 @@ tier_scan_kernel(const uint32_t* __restrict__ patt,   // (W, B)
     const int32_t* m = meta + 8 * t;
     const long long n_real = m[0];
     const int n_rows = max(0, min(m[1], R));  // rows past R do not exist
-    if (lane < W) s_patt[warp][lane] = patt[(long long)lane * B + q];
-    __syncwarp();
-    const uint32_t* p = s_patt[warp];
+    uint32_t* p = s_patt + warp * W;
+    stage_pattern(p, patt + q, B, W);
     const int L = plen[q];
     const uint32_t* text_t = text + (long long)t * n_words;
     const int32_t* sa_t = sa + (long long)t * R;
@@ -169,9 +170,10 @@ extern "C" int tier_scan_launch(const uint32_t* patt, const int32_t* plen,
                                 int32_t* first, cudaStream_t stream) {
   long long n_items = (long long)T * B;
   if (n_items <= 0) return 0;
+  if (W < 0 || W > MAX_PATTERN_WORDS) return (int)cudaErrorInvalidValue;
   tier_scan_kernel<<<(unsigned)((n_items + WARPS - 1) / WARPS), WARPS * 32,
-                     0, stream>>>(patt, plen, text, n_words, sa, pad_cnt,
-                                  meta, T, B, W, R, count, less, matches,
-                                  first);
+                     (size_t)WARPS * W * sizeof(uint32_t), stream>>>(
+      patt, plen, text, n_words, sa, pad_cnt, meta, T, B, W, R, count, less,
+      matches, first);
   return (int)cudaGetLastError();
 }

@@ -285,14 +285,13 @@ def fm_meta(fa: FMArrays) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # CUDA kernel: backward search over packed patterns, one thread per query
 # ---------------------------------------------------------------------------
-MAX_WORDS = 16          # pattern words the kernel stages per query
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def fm_scan_cuda(patterns: torch.Tensor, plen: torch.Tensor,
                  bwt: torch.Tensor, occ: torch.Tensor, meta: torch.Tensor):
     """The ``fm_scan_pallas`` contract on CUDA, over packed patterns in
-    place of the symbol plan.  patterns: (B, W) uint32, W <= 16; plen:
+    place of the symbol plan.  patterns: (B, W) uint32, W <= 256; plen:
     (B,); bwt: (4 * nblk,) uint32 packed BWT (16-byte aligned); occ:
     (nblk + 1, 4) int32 checkpoints; meta: (8,) int32 ``[C0..C3,
     sent_row, rows, 0, 0]`` (``FMArrays.meta``).  Returns (lo, hi) int32
@@ -303,9 +302,7 @@ def fm_scan_cuda(patterns: torch.Tensor, plen: torch.Tensor,
                          f"got {patterns.dtype} {tuple(patterns.shape)} on "
                          f"{patterns.device}")
     B, W = (int(d) for d in patterns.shape)
-    if W > MAX_WORDS:
-        raise ValueError(f"{W} pattern words > {MAX_WORDS}: the kernel "
-                         f"stages at most {MAX_WORDS} per query")
+    _build.check_width(W, "fm_scan")
     if not plen.is_cuda or tuple(plen.shape) != (B,):
         raise ValueError(f"plen must be a ({B},) CUDA tensor")
     if not bwt.is_cuda or bwt.dtype != torch.uint32 or bwt.dim() != 1:

@@ -33,8 +33,6 @@ from repro_torch.core import codec
 from repro_torch.core import query as Q
 from repro_torch.kernels import _build, kary
 
-MAX_WORDS = 16  # pattern words a warp stages in shared memory (256 bases)
-
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
@@ -118,9 +116,7 @@ def _search_launch(sa, text_packed, n_real: int, patterns, plen,
     B, W = patt.shape
     if plen.shape != (B,):
         raise ValueError("plen must be (B,)")
-    if W > MAX_WORDS:
-        raise ValueError(f"{W} pattern words > {MAX_WORDS}: the kernel "
-                         f"stages at most {MAX_WORDS} in shared memory")
+    _build.check_width(W, "bounded_search")
     if not 0 < n_rows <= sa.shape[0]:
         raise ValueError(f"n_rows={n_rows} out of range for "
                          f"{sa.shape[0]} SA rows")
@@ -159,7 +155,8 @@ def bounded_search_cuda(sa: torch.Tensor, text_packed: torch.Tensor,
     """(lb, ub) int32 (B,): the lower (pred = lt) and upper (pred =
     lt | eq) bounds of every query over the sorted rows ``sa[:n_rows]``,
     exactly ``query.search_bounds_plain``.  patterns (B, W) uint32 with
-    W <= 16; plen (B,); text_packed the store's packed text."""
+    W <= ``_build.MAX_PATTERN_WORDS`` (256); plen (B,); text_packed the
+    store's packed text."""
     return _search_launch(sa, text_packed, n_real, patterns, plen, n_rows,
                           0, bounds=True, match=False)
 

@@ -29,7 +29,6 @@ import torch
 from repro_torch.kernels import _build, kary
 
 BIG = 2**30     # "no match" sentinel for first_row
-MAX_WORDS = 16  # pattern words a warp stages in shared memory (256 bases)
 
 
 def _outputs(lb, ub):
@@ -76,9 +75,7 @@ def tablet_scan_cuda(patterns_t: torch.Tensor, plen: torch.Tensor,
             f"shape mismatch: patterns_t {tuple(patterns_t.shape)}, "
             f"windows_t {tuple(windows_t.shape)}, plen {tuple(plen.shape)}, "
             f"pos {tuple(pos.shape)}")
-    if W > MAX_WORDS:
-        raise ValueError(f"{W} pattern words > {MAX_WORDS}: the kernel "
-                         f"stages at most {MAX_WORDS} in shared memory")
+    _build.check_width(W, "tablet_scan")
     if not plen.is_cuda or not pos.is_cuda:
         raise ValueError("plen and pos must be CUDA tensors")
     dev = patterns_t.device

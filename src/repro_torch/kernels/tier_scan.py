@@ -167,7 +167,6 @@ def merge_tier_results(base, tier_count, tier_first):
 # ---------------------------------------------------------------------------
 # The 17-ary search per tier + the straddle rule over the match run
 # ---------------------------------------------------------------------------
-MAX_WORDS = 16      # pattern words a warp stages in shared memory
 
 
 def _run_scan(sa_t, lb, ub, plen, offset, lo_b, hi_b):
@@ -257,9 +256,7 @@ def tier_scan_cuda(patterns_t: torch.Tensor, plen: torch.Tensor,
             f"text_packed {tuple(text_packed.shape)}, sa {tuple(sa.shape)}, "
             f"pad_cnt {tuple(pad_cnt.shape)}, meta {tuple(meta.shape)}, "
             f"plen {tuple(plen.shape)}")
-    if W > MAX_WORDS:
-        raise ValueError(f"{W} pattern words > {MAX_WORDS}: the kernel "
-                         f"stages at most {MAX_WORDS} in shared memory")
+    _build.check_width(W, "tier_scan")
     for name, x in (("plen", plen), ("sa", sa), ("pad_cnt", pad_cnt),
                     ("meta", meta)):
         if not x.is_cuda:

@@ -431,3 +431,146 @@ def test_compact_on_the_card_matches_cpu(cuda, frozen):
         np.testing.assert_array_equal(getattr(b, f), getattr(a, f), f)
     if not frozen:
         assert torch.equal(tables[0].store.sa.cpu(), tables[1].store.sa)
+
+
+def _wide_case(mq):
+    """A DNA text in which patterns up to ``mq`` bases match more than
+    once (a stretch of ``mq`` bases planted twice more), and patterns of
+    1 to ``mq`` bases: cut from the text, random, the planted stretch,
+    the stretch with its last base changed, and a 17-base text tail."""
+    codes = C.random_dna(6000, seed=mq)
+    stretch = codes[100:100 + mq]
+    codes = np.concatenate([codes, stretch, C.random_dna(500, seed=mq + 1),
+                            stretch])
+    text = C.decode_dna(codes)
+    rng = np.random.default_rng(mq)
+    pats = []
+    for _ in range(60):
+        L = int(rng.integers(1, mq + 1))
+        s = int(rng.integers(0, len(text) - L))
+        pats.append(text[s:s + L])
+    planted = text[100:100 + mq]
+    other = "A" if planted[-1] != "A" else "C"
+    pats += Q.random_patterns(30, 1, mq, seed=mq) + [
+        planted, planted[:-1] + other, "A", text[-17:]]
+    return codes, pats, planted
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mq", [257, 512, 1024])
+def test_search_kernels_take_wide_patterns(cuda, mq):
+    """Patterns past 16 words (W = 17, 32, 64): bounded_search and its
+    epilogue, tablet_scan over every sorted row, tier_scan over a run
+    and a memtable, and fm_scan, each against its plain versions,
+    exactly."""
+    from repro_torch.api import FMIndex, SuffixTable
+    from repro_torch.kernels import fm_scan as FM
+    from repro_torch.kernels.pattern_scan import (bounded_match_cuda,
+                                                  bounded_match_plain,
+                                                  bounded_search_cuda,
+                                                  bounded_search_plain)
+    from repro_torch.kernels.tablet_scan import (tablet_scan_cuda,
+                                                 tablet_scan_plain)
+    codes, pats, planted = _wide_case(mq)
+    table = SuffixTable.from_codes(codes, is_dna=True, max_query_len=mq,
+                                   memtable_limit=1000 + 2 * mq, device=cuda)
+    store = table.store
+    pp, pl = table.planner.encode(pats)
+    W = int(pp.shape[1])
+    assert W == (mq + 15) // 16 > 16
+    args = (store.sa, store.text_packed, store.n_real, pp, pl, store.n_pad)
+    lb, ub = bounded_search_cuda(*args)
+    torch.cuda.synchronize()
+    for want in (bounded_search_plain(*args),
+                 Q.search_bounds_plain(store, pp, pl)):
+        assert torch.equal(lb, want[0]) and torch.equal(ub, want[1])
+    assert int((ub - lb)[len(pats) - 4]) == 3       # the planted stretch
+    got = bounded_match_cuda(*args, store.pad_count)
+    for g, w in zip(got, bounded_match_plain(store, pp, pl)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    wt = C.extract_window(store.text_packed, store.sa, W).T.contiguous()
+    pt = pp.T.contiguous()
+    got = tablet_scan_cuda(pt, pl, wt, store.sa, n_real=store.n_real)
+    for g, w in zip(got, tablet_scan_plain(pt, pl, wt, store.sa,
+                                           n_real=store.n_real)):
+        assert torch.equal(g, w)
+    for i, n in enumerate((500, 500, 300)):         # a run and a memtable
+        chunk = C.random_dna(n, seed=mq + 10 + i)
+        table.append(np.concatenate([chunk, C.encode_dna(planted)]))
+    assert len(table.runs) == 1 and table.memtable.size > 0
+    _tier_outputs_agree(table._tierset().stack, pats)
+    fa = FMIndex.build(codes, None, is_dna=True, sample_rate=8,
+                       device=cuda).arrays
+    got = FM.fm_scan_cuda(pp, pl, fa.bwt, fa.occ, fa.meta)
+    for want in (FM.backward_search(fa, pp, pl),
+                 FM.search_syms(fa, FM.syms_from_packed(pp, pl, 16 * W))):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frozen", [False, True])
+@pytest.mark.parametrize("mq", [257, 512, 1024])
+def test_wide_pattern_tables_match_cpu(cuda, mq, frozen):
+    """Tables at max_query_len 257, 512 and 1024 on the card answer
+    exactly as on the CPU, base only, merged (a run and a memtable) and
+    compacted, live and frozen."""
+    from repro_torch.api import SuffixTable
+    codes, pats, planted = _wide_case(mq)
+    tables = [SuffixTable.from_codes(codes, is_dna=True, max_query_len=mq,
+                                     memtable_limit=1000 + 2 * mq, device=d)
+              for d in (cuda, "cpu")]
+
+    def agree():
+        a, b = tables[1].scan(pats, top_k=3), tables[0].scan(pats, top_k=3)
+        for f in ("count", "first_pos", "positions"):
+            np.testing.assert_array_equal(getattr(b, f), getattr(a, f), f)
+
+    for t in tables:
+        if frozen:
+            t.freeze(sample_rate=8)
+    agree()
+    for i, n in enumerate((500, 500, 300)):
+        chunk = np.concatenate([C.random_dna(n, seed=mq + 10 + i),
+                                C.encode_dna(planted)])
+        for t in tables:
+            t.append(chunk)
+    agree()
+    for t in tables:
+        assert t.compact() == 1 and t.is_frozen == frozen
+    agree()
+
+
+@pytest.mark.cuda
+def test_database_round_trip_on_the_card_matches_cpu(cuda, tmp_path):
+    """The client frontend on the card: create_table, coalesced submits,
+    paged read_rows, a client append and compact, each equal to the same
+    script on the CPU."""
+    from repro_torch.api import Database, Query
+    pats = Q.random_patterns(40, 1, 12, seed=4) + ["ACG", "A"]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        db = Database(str(tmp_path / dev), device=dev)
+        table = db.create_table("dna", C.random_dna(4000, seed=3),
+                                is_dna=True, memtable_limit=700, device=dev)
+        assert table.device.type == dev
+        futs = [db.submit(Query.scan("dna", [p], top_k=3)) for p in pats]
+        out = [f.result(timeout=60.0) for f in futs]
+        assert all(r.ok for r in out)
+        pages = [p.positions for p in
+                 db.read_rows("dna", "ACG", page_size=7).pages()]
+        db.append("dna", C.random_dna(900, seed=5))
+        after = db.query(Query.scan("dna", pats, top_k=3))
+        version = db.compact("dna")
+        compacted = db.query(Query.scan("dna", pats, top_k=3))
+        db.close()
+        runs[dev] = (out, pages, after, version, compacted)
+    (a_out, a_pages, a_after, a_v, a_comp), (b_out, b_pages, b_after, b_v,
+                                              b_comp) = runs["cpu"], \
+        runs["cuda"]
+    for x, y in zip(a_out + [a_after, a_comp], b_out + [b_after, b_comp]):
+        for f in ("count", "found", "first_pos", "positions"):
+            np.testing.assert_array_equal(getattr(y, f), getattr(x, f), f)
+    assert len(a_pages) == len(b_pages) > 1 and a_v == b_v == 2
+    for x, y in zip(a_pages, b_pages):
+        np.testing.assert_array_equal(y, x)

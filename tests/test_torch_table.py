@@ -80,7 +80,7 @@ def test_token_table_matches_reference():
         np.testing.assert_array_equal(getattr(b, f), getattr(a, f), f)
 
 
-def test_stats_and_unported_options():
+def test_stats_and_unported_options(tmp_path):
     pt = SuffixTable.from_codes("ACGTACGTTTGACA" * 20, device=CPU,
                                 memtable_limit=64)
     pt.count(["ACG", "TTT"])
@@ -92,18 +92,29 @@ def test_stats_and_unported_options():
     assert s["planner"]["fused_batches"] == 1
     assert s["planner"]["base_only_batches"] == 1
     assert "dispatch" in s["latency"] and "dispatch_fused" in s["latency"]
+    assert s["build"]["rounds"] == 10 and s["build"]["chunk_rows"] == 280
+    assert s["planner"]["pad_slots"] == 0
     for kw in ({"mesh": object()}, {"distributed_build": True}):
         with pytest.raises(NotImplementedError):
             SuffixTable.from_codes("ACGT" * 8, device=CPU, **kw)
+    # the routed mode's knobs are kept, as the reference keeps them
+    t = SuffixTable.from_codes("ACGT" * 8, device=CPU, capacity_factor=1.5,
+                               routed_min_batch=8)
+    assert (t.capacity_factor, t.routed_min_batch) == (1.5, 8)
     # persistence, the commit log and compaction are ported: the
     # reference's rules for an in-memory table hold
     with pytest.raises(ValueError):
         SuffixTable.from_codes("ACGT" * 8, device=CPU, wal=True)
     with pytest.raises(RuntimeError):
         pt.flush()
-    for name in ("start_metrics", "stop_metrics"):
-        with pytest.raises(NotImplementedError):
-            getattr(pt, name)()
+    # the metrics feed is ported: one row per interval and a last one
+    feed = str(tmp_path / "metrics.jsonl")
+    pt.start_metrics(feed, interval_s=0)
+    pt.stop_metrics()
+    pt.stop_metrics()                      # idempotent
+    with open(feed) as f:
+        assert [__import__("json").loads(ln)["role"] for ln in f] == \
+            ["table"]
     assert SuffixTable.from_codes("ACGT" * 8, device=CPU,
                                   max_runs=2).max_runs == 2
     assert s["version"] == 0 and s["wal"]["enabled"] is False
@@ -197,3 +208,41 @@ def test_stats_schema_matches_reference(frozen):
     if frozen:
         assert b["tiers"]["resident_bytes"]["text_device"] == 0
         assert 0 < b["tiers"]["resident_bytes"]["fm"] < 3000 * 4 / 4
+
+
+def test_numpy_batches_match_reference():
+    """``scan_batch`` and ``scan_encoded`` take numpy batches, as the
+    reference's do: packed DNA words stay uint32, token codes int32;
+    base only, then merged after an append."""
+    jt = JTable.from_codes("ACGTACGTTACG", max_query_len=16)
+    pt = SuffixTable.from_codes("ACGTACGTTACG", max_query_len=16,
+                                device=CPU)
+    patt, plen = (np.asarray(x) for x in jt.planner.encode(["ACG"]))
+    assert patt.dtype == np.uint32 and plen.dtype == np.int32
+    for want in (3, 4):
+        a, b = jt.scan_batch(patt, plen, top_k=5), \
+            pt.scan_batch(patt, plen, top_k=5)
+        assert b.count.tolist() == a.count.tolist() == [want]
+        for f in ("found", "first_pos", "positions"):
+            np.testing.assert_array_equal(getattr(b, f), getattr(a, f), f)
+        ea, eb = jt.scan_encoded(patt, plen), pt.scan_encoded(patt, plen)
+        for f in ("found", "count", "first_rank", "first_pos"):
+            np.testing.assert_array_equal(getattr(eb, f).numpy(),
+                                          np.asarray(getattr(ea, f)), f)
+        jt.append("ACG")
+        pt.append("ACG")
+    codes = np.array([1, 2, 3, 1, 2], np.int32)
+    jt = JTable.from_codes(codes, is_dna=False, max_query_len=4)
+    pt = SuffixTable.from_codes(codes, is_dna=False, max_query_len=4,
+                                device=CPU)
+    patt = np.array([[1, 2, 0, 0]], np.int32)
+    plen = np.array([2], np.int32)
+    for want in (2, 3):
+        a, b = jt.scan_batch(patt, plen, top_k=4), \
+            pt.scan_batch(patt, plen, top_k=4)
+        assert b.count.tolist() == a.count.tolist() == [want]
+        np.testing.assert_array_equal(b.positions, a.positions)
+        eb = pt.scan_encoded(patt, plen)
+        assert eb.count.tolist() == [want]
+        jt.append(np.array([1, 2], np.int32))
+        pt.append(np.array([1, 2], np.int32))
