@@ -71,10 +71,36 @@ through the public entry points at chromosome scale:
                  brute force, ``[stream]``'s page total against the
                  one-shot count, ``[write ]``'s rise against the planted
                  occurrences, and the feed must hold the reference's rows;
-16. ``[kernels]`` every kernel's launches on each of the six paths
+16. ``[staged]`` ``SuffixTable.create(max_device_bytes=100,663,296)``
+                 over the same 2**26 bases (16 chunks of 2**22 rows, each
+                 sorted on the card as sub-chunks that fit the budget),
+                 the SA streamed into the snapshot shard by shard: the
+                 snapshot's SA must equal ``[build]``'s on every row and
+                 the build's measured device peak stay within the budget
+                 (``[sort-footprint]`` gives one chunk sort's bytes a
+                 row); a second staged build of 2**24 bases spilled to a
+                 directory in ``build/`` must equal the in-memory build
+                 and leave the directory empty (``[staged:spill]``); a
+                 third of 2**20 bases with ``staged=True`` and no budget
+                 must sort each 2**16-row chunk whole, one sort a chunk
+                 a round (``[staged:whole]``); the staged table reopened
+                 serves the workload, equal to ``[count]``
+                 (``[staged-served]``);
+17. ``[plane]``  one unflushed append of 2**17 bases to that table, then
+                 ``ServingPlane.deploy`` (4 tablets x 2 replicas of numpy
+                 tablet workers over the snapshot, the owner replaying
+                 the log's tail): the workload as ``count`` and
+                 ``scan(top_k=4)`` through ``Database.connect_plane``,
+                 and ``locate_range`` of its first 2,048 patterns (one
+                 call each; cut from 10,000 to keep the run within half
+                 its time limit), must equal the card table's merged
+                 answers; ``count`` again after ``kill -9`` of one
+                 replica of tablet 0, and after its restart one batch of
+                 ``scan(top_k=4)`` and the text CRC it had before;
+18. ``[kernels]`` every kernel's launches on each of the eight paths
                  (serving 1-8, compaction 9-10, persistence 11-12, long 13,
-                 client 14, serve 15; the counts are set to 0 before each
-                 and read after it) and
+                 client 14, serve 15, staged 16, plane 17; the counts are
+                 set to 0 before each and read after it) and
                  its result held against its plain PyTorch version(s)
                  on inputs taken from that run, and timed, between
                  phases 12 and 13; a sample of counts is
@@ -131,6 +157,12 @@ FROZEN_SLICE = 2**22        # [long]: bases of the frozen table
 LONG_TABLET_ROWS = 2**20    # [long]: sorted rows tablet_scan is held on
 CALLERS = 128               # [client]: callers per wave
 CLIENT_WAVES = 8
+STAGED_BUDGET = 100_663_296 # [staged]: max_device_bytes -> 2**22-row chunks
+SPILL_LEN = 2**24           # [staged]: bases of the spilled build
+WHOLE_LEN = 2**20           # [staged]: bases of the build without a budget
+PLANE_TABLETS = 4           # [plane]: tablets x replicas
+PLANE_REPLICAS = 2
+PLANE_LOCATE = 2048         # [plane]: patterns located one call each
 
 # Published H100 SXM peaks (NVIDIA data sheet), used for the bounds.
 MEM_BYTES_PER_S = 3.35e12
@@ -522,6 +554,7 @@ def main() -> int:
           f"resident_bytes={torch.cuda.memory_allocated()} "
           f"peak_bytes={torch.cuda.max_memory_allocated()}", flush=True)
     check(table.store.device.type == "cuda", "table lives on the card")
+    base_sa = table.store.sa[table.store.pad_count:].cpu().numpy()
 
     patterns = Q.random_patterns(N_QUERIES, 1, 100, seed=0)
 
@@ -1293,9 +1326,302 @@ def main() -> int:
     for k in ("pack2bit", "bounded_search", "tier_scan"):
         check(serve_launches[k] > 0, f"{k} launched on the [serve] path")
 
+    # ---------------- [staged] path: the out-of-core build --------------
+    _build.reset_launches()
+    from repro_torch.api import Database, Query
+    from repro_torch.api import table as table_mod
+    from repro_torch.checkpoint.manager import CheckpointManager, by_key
+    from repro_torch.core import build_pipeline as BP
+    from repro_torch.serving import rpc
+    from repro_torch.serving.plane import ServingPlane
+    torch.cuda.synchronize()
+    peak_before_staged = torch.cuda.max_memory_allocated()
+    build_peaks, sort_s, sort_n = [], [], []
+    inner_build = table_mod.staged_suffix_array
+    inner_sort = BP._sort_chunk
+
+    def timed_sort(*args):
+        """One chunk sort: upload, ``torch.sort`` and copy back, which
+        waits for the card; its wall time and count are summed per
+        build."""
+        t = time.perf_counter()
+        out = inner_sort(*args)
+        sort_s[-1] += time.perf_counter() - t
+        sort_n[-1] += 1
+        return out
+
+    def measured_build(*args, **kw):
+        """The table's staged build, its device peak measured: the
+        bytes allocated at the peak less those resident before."""
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sort_s.append(0.0)
+        sort_n.append(0)
+        out = inner_build(*args, **kw)
+        torch.cuda.synchronize()
+        build_peaks.append(torch.cuda.max_memory_allocated() - before)
+        return out
+
+    sroot = tempfile.mkdtemp(prefix="chip_smoke_staged_",
+                             dir=os.path.join(ROOT, "build"))
+    plane = pdb = None
+    try:
+        # the device footprint of one chunk sort against the figure the
+        # build sizes its sorts by (bytes a row plus a fixed margin)
+        foot = {}
+        for n_rows in (2**16, 2**20, 2**22):
+            key = np.random.default_rng(n_rows).integers(0, 2**50,
+                                                         size=n_rows)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            BP._sort_chunk(key, 0, dev)
+            torch.cuda.synchronize()
+            foot[n_rows] = torch.cuda.max_memory_allocated() - before
+        print("[sort-footprint] " + " ".join(
+            f"rows={r}:peak_bytes={v},bytes_per_row={v / r:.4f}"
+            for r, v in foot.items())
+            + f" model_bytes_per_row={BP.SORT_BYTES_PER_ROW} "
+            f"model_fixed_bytes={BP.SORT_FIXED_BYTES}", flush=True)
+        check(all(v <= r * BP.SORT_BYTES_PER_ROW + BP.SORT_FIXED_BYTES
+                  for r, v in foot.items()),
+              "[staged] a chunk sort holds no more device bytes than the "
+              "build sizes its sorts by")
+        table_mod.staged_suffix_array = measured_build
+        BP._sort_chunk = timed_sort
+        try:
+            t0 = time.perf_counter()
+            stable = SuffixTable.create("staged", base, root=sroot,
+                                        is_dna=True,
+                                        max_query_len=MAX_QUERY_LEN,
+                                        max_device_bytes=STAGED_BUDGET)
+            torch.cuda.synchronize()
+            staged_s = time.perf_counter() - t0
+            spill = os.path.join(sroot, "spill")
+            small = codec.random_dna(SPILL_LEN, seed=5)
+            t0 = time.perf_counter()
+            spilled = SuffixTable.create(
+                "spilled", small, root=sroot, is_dna=True,
+                max_query_len=MAX_QUERY_LEN, spill_dir=spill,
+                max_device_bytes=SPILL_LEN // 16 * BP.BYTES_PER_ROW)
+            torch.cuda.synchronize()
+            spill_s = time.perf_counter() - t0
+            # before the next create: its catalog reconcile removes
+            # every directory of the root that names no table
+            left = os.listdir(spill)
+            whole_codes = codec.random_dna(WHOLE_LEN, seed=6)
+            whole = SuffixTable.create("whole", whole_codes, root=sroot,
+                                       is_dna=True, staged=True,
+                                       max_query_len=MAX_QUERY_LEN)
+        finally:
+            table_mod.staged_suffix_array = inner_build
+            BP._sort_chunk = inner_sort
+        b = stable.stats()["build"]
+        sort_rows = BP.device_sort_rows(b["chunk_rows"], STAGED_BUDGET,
+                                        dev)
+        step_dir = os.path.join(sroot, "staged", "step_0000000001")
+        with open(os.path.join(step_dir, "meta.json")) as f:
+            n_shards = json.load(f)["shards"]["sa_real"]["count"]
+        arrays, _ = CheckpointManager(os.path.join(sroot, "staged")
+                                      ).restore_arrays(1)
+        snap_sa = by_key(arrays)["sa_real"]
+        sa_ok = (np.array_equal(snap_sa, base_sa) and np.array_equal(
+            stable.store.sa[stable.store.pad_count:].cpu().numpy(),
+            base_sa))
+        del arrays, snap_sa
+        print(f"[staged] n={TEXT_LEN} rounds={b['rounds']} "
+              f"chunks={b['n_chunks']}x{b['chunk_rows']} "
+              f"sort_rows={sort_rows} runs_per_round="
+              f"{-(-TEXT_LEN // sort_rows)} seconds={staged_s:.4f} "
+              f"build_seconds={b['elapsed_s']:.4f} "
+              f"mbase_per_s={TEXT_LEN / b['elapsed_s'] / 1e6:.4f} "
+              f"sort_seconds={sort_s[0]:.4f} host_share="
+              f"{1 - sort_s[0] / b['elapsed_s']:.4f} "
+              f"measured_peak_bytes={build_peaks[0]} "
+              f"max_device_bytes={STAGED_BUDGET} "
+              f"modelled_peak_device_bytes={b['peak_device_bytes']} "
+              f"sort_bytes_per_row={build_peaks[0] / sort_rows:.4f} "
+              f"shards={n_shards} sa_equals_build={str(sa_ok).lower()} "
+              f"card=\"{smi}\"", flush=True)
+        check(b["mode"] == "staged" and b["n_chunks"] == 16,
+              "[staged] the budget gave 16 chunks of 2**22 rows")
+        check(build_peaks[0] <= STAGED_BUDGET,
+              "[staged] the build's measured device peak is within "
+              "max_device_bytes")
+        check(sa_ok, "[staged] the snapshot's SA equals the in-memory "
+              "[build] SA on every row")
+        check(n_shards == 16, "[staged] the SA was streamed as 16 shards")
+        sb = spilled.stats()["build"]
+        small_sa = build_suffix_array(torch.from_numpy(small).to(dev))
+        spill_ok = torch.equal(
+            spilled.store.sa[spilled.store.pad_count:], small_sa)
+        print(f"[staged:spill] n={SPILL_LEN} rounds={sb['rounds']} "
+              f"chunks={sb['n_chunks']}x{sb['chunk_rows']} "
+              f"seconds={spill_s:.4f} build_seconds={sb['elapsed_s']:.4f} "
+              f"mbase_per_s={SPILL_LEN / sb['elapsed_s'] / 1e6:.4f} "
+              f"sort_seconds={sort_s[1]:.4f} "
+              f"spill_bytes={sb['spill_bytes']} "
+              f"measured_peak_bytes={build_peaks[1]} max_device_bytes="
+              f"{SPILL_LEN // 16 * BP.BYTES_PER_ROW} "
+              f"sa_equals_in_memory={str(spill_ok).lower()} "
+              f"spill_files_left={len(left)}", flush=True)
+        check(spill_ok and sb["n_chunks"] == 16 and sb["spill_bytes"] > 0,
+              "[staged:spill] the spilled build's SA equals the in-memory "
+              "build")
+        check(not left, "[staged:spill] the spill dir is empty afterwards")
+        check(build_peaks[1] <= SPILL_LEN // 16 * BP.BYTES_PER_ROW,
+              "[staged:spill] the measured device peak is within "
+              "max_device_bytes")
+        wb = whole.stats()["build"]
+        whole_ok = torch.equal(
+            whole.store.sa[whole.store.pad_count:],
+            build_suffix_array(torch.from_numpy(whole_codes).to(dev)))
+        print(f"[staged:whole] n={WHOLE_LEN} rounds={wb['rounds']} "
+              f"chunks={wb['n_chunks']}x{wb['chunk_rows']} "
+              f"sorts={sort_n[2]} measured_peak_bytes={build_peaks[2]} "
+              f"sa_equals_in_memory={str(whole_ok).lower()}", flush=True)
+        check(whole_ok and sort_n[2] == wb["rounds"] * wb["n_chunks"],
+              "[staged:whole] without a budget every round sorts each "
+              "chunk whole, and the SA equals the in-memory build")
+        whole.close()
+        spilled.close()
+        stable.close()
+        del spilled, stable, small_sa, whole
+        t0 = time.perf_counter()
+        staged = SuffixTable.open("staged", root=sroot)
+        torch.cuda.synchronize()
+        reopen_s = time.perf_counter() - t0
+        print(f"[staged:open] seconds={reopen_s:.4f} "
+              f"mode={staged.stats()['build']['mode']}", flush=True)
+        sc, sf = serve("staged-served", staged)
+        check(np.array_equal(sc, base_counts)
+              and np.array_equal(sf, base_first),
+              "[staged] the reopened staged table's counts and first_pos "
+              "equal [count]")
+        torch.cuda.synchronize()
+        staged_launches = dict(_build.LAUNCHES)
+        print(f"[staged-launches] " + " ".join(
+            f"{k}={v}" for k, v in staged_launches.items()), flush=True)
+        for k in ("pack2bit", "bounded_search"):
+            check(staged_launches[k] > 0, f"{k} launched on the [staged] "
+                  f"path")
+
+        # ------------ [plane] path: tablet workers over the snapshot ----
+        _build.reset_launches()
+        staged.append(codec.random_dna(APPEND_LEN, seed=21))  # log only
+        pdb = Database(sroot)
+        pdb.attach("staged", staged)
+        t0 = time.perf_counter()
+        plane = ServingPlane.deploy(sroot, "staged", PLANE_TABLETS,
+                                    replicas=PLANE_REPLICAS)
+        up_s = time.perf_counter() - t0
+        alias = "staged@plane"
+        remote = pdb.connect_plane("staged", attach_as=alias)
+
+        def through(name, kind, **kw):
+            """The workload as typed queries on ``name``, in batches:
+            (results, seconds)."""
+            ctor = getattr(Query, kind)
+            t = time.perf_counter()
+            out = [pdb.query(ctor(name, patterns[i:i + BATCH], **kw))
+                   for i in range(0, N_QUERIES, BATCH)]
+            return out, time.perf_counter() - t
+
+        def same(a, b) -> bool:
+            return all(x.ok and y.ok and all(
+                (getattr(x, f) is None and getattr(y, f) is None)
+                or np.array_equal(getattr(x, f), getattr(y, f))
+                for f in ("found", "count", "first_pos", "positions"))
+                for x, y in zip(a, b))
+
+        staged.clear_cache()
+        card_count, card_s = through("staged", "count")
+        plane_count, plane_s = through(alias, "count")
+        staged.clear_cache()
+        card_scan, card_scan_s = through("staged", "scan", top_k=4)
+        plane_scan, plane_scan_s = through(alias, "scan", top_k=4)
+        t = time.perf_counter()
+        card_loc = [staged.locate_range(p) for p in patterns[:PLANE_LOCATE]]
+        card_loc_s = time.perf_counter() - t
+        t = time.perf_counter()
+        plane_loc = [remote.locate_range(p)
+                     for p in patterns[:PLANE_LOCATE]]
+        plane_loc_s = time.perf_counter() - t
+        loc_ok = all(np.array_equal(a, b) for a, b in zip(card_loc,
+                                                          plane_loc))
+        owner = plane._sock_path(PLANE_TABLETS - 1, 0)
+        t0r0 = plane._sock_path(0, 0)
+
+        def worker_stats(path):
+            c = rpc.RpcClient(path)
+            try:
+                return c.call({"op": "stats"})["stats"]
+            finally:
+                c.close()
+
+        ost = worker_stats(owner)
+        crc_before = worker_stats(t0r0)["text_crc"]
+        plane.kill(0, 0)
+        failed_over, _ = through(alias, "count")
+        plane.restart(0, 0)
+        crc_after = worker_stats(t0r0)["text_crc"]
+        again = [pdb.query(Query.scan(alias, patterns[:BATCH], top_k=4))]
+        rs = remote.router.stats()
+        counts_ok = same(card_count, plane_count)
+        scan_ok = same(card_scan, plane_scan)
+        fo_ok = same(card_count, failed_over) and same(card_scan[:1], again)
+        print(f"[plane] tablets={PLANE_TABLETS} replicas={PLANE_REPLICAS} "
+              f"n_base={TEXT_LEN} delta={ost['delta_len']} "
+              f"owner_wal_replayed={ost['wal_records_replayed']} "
+              f"up_seconds={up_s:.4f} queries={N_QUERIES} "
+              f"count_queries_per_s={N_QUERIES / plane_s:.1f} "
+              f"card_count_queries_per_s={N_QUERIES / card_s:.1f} "
+              f"scan_top4_queries_per_s={N_QUERIES / plane_scan_s:.1f} "
+              f"card_scan_top4_queries_per_s="
+              f"{N_QUERIES / card_scan_s:.1f} "
+              f"located={PLANE_LOCATE} "
+              f"locate_range_per_s={PLANE_LOCATE / plane_loc_s:.1f} "
+              f"card_locate_range_per_s={PLANE_LOCATE / card_loc_s:.1f} "
+              f"card=\"{smi}\"", flush=True)
+        print(f"[plane] rpcs={rs['rpcs']} hedge_fired={rs['hedge_fired']} "
+              f"hedge_wins={rs['hedge_wins']} failovers={rs['failovers']} "
+              f"p50_ms={rs['p50_ms']} p95_ms={rs['p95_ms']} "
+              f"count_equal={str(counts_ok).lower()} "
+              f"scan_top4_equal={str(scan_ok).lower()} "
+              f"locate_range_equal={str(loc_ok).lower()} "
+              f"after_kill9_equal={str(fo_ok).lower()} "
+              f"crc_before={crc_before} crc_after={crc_after}", flush=True)
+        check(ost["wal_records_replayed"] == 1
+              and ost["delta_len"] == APPEND_LEN,
+              "[plane] the owner tablet replayed the unflushed append")
+        check(counts_ok and scan_ok and loc_ok,
+              "[plane] count, scan(top_k=4) and locate_range through the "
+              "plane equal the card table's")
+        check(fo_ok and rs["failovers"] > 0,
+              "[plane] answers unchanged after kill -9 of a replica")
+        check(crc_after == crc_before,
+              "[plane] the restarted replica serves the same text")
+        torch.cuda.synchronize()
+        plane_launches = dict(_build.LAUNCHES)
+        print(f"[plane-launches] " + " ".join(
+            f"{k}={v}" for k, v in plane_launches.items()), flush=True)
+        for k in ("bounded_search", "tier_scan"):
+            check(plane_launches[k] > 0, f"{k} launched on the [plane] "
+                  f"path")
+        staged.close()
+        del staged
+    finally:
+        if plane is not None:
+            plane.stop()
+        if pdb is not None:
+            pdb.close()
+        shutil.rmtree(sroot, ignore_errors=True)
+
     by_path = {"serve": launches, "compact": compact_launches,
                "persist": persist_launches, "long": long_launches,
-               "client": client_launches, "serve_cli": serve_launches}
+               "client": client_launches, "serve_cli": serve_launches,
+               "staged": staged_launches, "plane": plane_launches}
     Q.query = search
     print(f"[locate] {json.dumps({p: located[i].tolist() for i, p in enumerate(loc_pats)})}",
           flush=True)
@@ -1442,9 +1768,12 @@ def main() -> int:
                 f"{r[p + 'bound_ms']:.3g}"
                 for w, p in (("W=8", ""), ("W=64", "w64_"))), flush=True)
     print("[kernels] " + " ".join(
-        f"{r['name']}:launches={r['launches']},match="
+        f"{r['name']}:launches={r['launches']},staged="
+        f"{r['launches_by_path']['staged']},plane="
+        f"{r['launches_by_path']['plane']},match="
         f"{str(r['max_abs_err'] == 0).lower()}" for r in rows), flush=True)
-    print(f"[memory] peak_bytes={torch.cuda.max_memory_allocated()}",
+    print(f"[memory] peak_bytes="
+          f"{max(peak_before_staged, torch.cuda.max_memory_allocated())}",
           flush=True)
     print(smi, flush=True)          # card name and power limit, as is
     if failures:

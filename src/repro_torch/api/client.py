@@ -19,8 +19,8 @@ port of ``repro.api.client``.
 
 Semantics: every path funnels into ``SuffixTable.scan`` /
 ``scan_batch``, so coalesced results are bit-identical to per-call
-results.  The serving plane (``Database.connect_plane``) is not ported
-yet.
+results.  ``Database.connect_plane`` routes a table through its
+multi-process serving plane (``repro_torch.serving.plane``).
 """
 from __future__ import annotations
 
@@ -744,6 +744,7 @@ class Database:
         self._open_kw = dict(open_kw)
         self._tables: dict[str, SuffixTable] = {}
         self._owned: set[str] = set()       # opened/created by this handle
+        self._remote: set[str] = set()      # plane handles we must close
         self._closed = False
         self._open_lock = threading.Lock()
         self.scheduler = QueryScheduler(
@@ -787,12 +788,29 @@ class Database:
 
     def connect_plane(self, name: str, *, attach_as: Optional[str] = None,
                       **router_kw):
-        """Route ``name`` through its serving plane: not ported yet (the
-        tablet plane is ROADMAP queue 1, item 4).  Raises
-        ``NotImplementedError``."""
-        raise NotImplementedError(
-            "Database.connect_plane: the tablet serving plane is not "
-            "ported to repro_torch yet (ROADMAP queue 1, item 4)")
+        """Route ``name`` through its deployed serving plane
+        (``root/<name>/tablets/``, ``repro_torch.serving.plane``).
+
+        Reads the tablet manifest + live endpoints, builds a
+        :class:`~repro_torch.serving.router.RemoteTable`, and attaches it
+        — by default UNDER THE TABLE'S OWN NAME, so every typed query
+        against ``name`` becomes a routed multi-process read (the
+        attached handle shadows the lazy on-disk open).  ``attach_as``
+        registers it under an alias instead, keeping the local open
+        reachable for side-by-side comparison.  ``router_kw`` reaches
+        the ``TabletRouter`` (hedging, quotas, metrics).  The handle is
+        owned: :meth:`close` shuts its router down."""
+        if self.root is None:
+            raise RuntimeError("in-memory database has no catalog root "
+                               "to read a tablet manifest from")
+        from repro_torch.serving.router import connect
+        alias = attach_as or name
+        if alias in self._tables:
+            raise ValueError(f"table {alias!r} is already attached")
+        remote = connect(self.root, name, **router_kw)
+        self._tables[alias] = remote
+        self._remote.add(alias)
+        return remote
 
     def ensure_attached(self, table: SuffixTable,
                         name: Optional[str] = None) -> str:
@@ -925,9 +943,10 @@ class Database:
         """Shut the handle down, idempotently: stop accepting queries,
         drain and JOIN the scheduler's worker thread, then release the
         commit-log fds and metrics emitters of every table THIS handle
-        opened or created (attached in-memory tables stay open — the
-        attacher owns their lifecycle).  After
-        ``close()``, :meth:`table` and new queries raise."""
+        opened or created and the routers of every plane it connected
+        (attached in-memory tables stay open — the attacher owns their
+        lifecycle).  After ``close()``, :meth:`table` and new queries
+        raise."""
         if self._closed:
             return
         self._closed = True
@@ -936,6 +955,8 @@ class Database:
             t = self._tables.get(name)
             if t is not None:
                 t.close()
+        for alias in sorted(self._remote):
+            self._tables[alias].close()
 
     def __enter__(self) -> "Database":
         return self

@@ -27,9 +27,13 @@ either package opens in the other.
 :meth:`start_metrics` streams :meth:`stats` into the reference's
 ``metrics.jsonl`` feed (``serving.metrics``).
 
-Not ported yet, and raising ``NotImplementedError`` when asked for: the
-staged out-of-core build (``create(staged=True)``, ``max_device_bytes``,
-``spill_dir``) and meshes (``mesh``, ``distributed_build``).  The routed
+``create(staged=True)`` (or ``max_device_bytes`` / ``spill_dir`` /
+``build_chunk_rows``) builds out of core under a device-byte budget
+(``core.build_pipeline``) and streams the suffix array into the snapshot
+shard by shard.
+
+Not ported yet, and raising ``NotImplementedError`` when asked for:
+meshes (``mesh``, ``distributed_build``).  The routed
 mode's knobs ``capacity_factor`` and ``routed_min_batch`` are taken and
 kept as the reference keeps them; on one device nothing reads them.
 """
@@ -52,7 +56,11 @@ from repro_torch.api.runs import Run, TierSet, logical_tail
 from repro_torch.api.wal import WriteAheadLog
 from repro_torch.checkpoint.manager import CheckpointManager, by_key
 from repro_torch.core import codec
-from repro_torch.core.build_pipeline import BuildStats, in_memory_build_stats
+from repro_torch.core.build_pipeline import (BuildStats,
+                                             chunk_rows_for_budget,
+                                             device_sort_rows,
+                                             in_memory_build_stats,
+                                             staged_suffix_array)
 from repro_torch.core.planner import ScanOutcome, ScanPlanner, TopKCache
 from repro_torch.core.query import MatchResult
 from repro_torch.core.suffix_array import build_suffix_array
@@ -63,9 +71,6 @@ from repro_torch.serving.trace import Tracer
 
 # keyword arguments of repro's SuffixTable that need a mesh
 _UNPORTED = ("distributed_build", "mesh")
-# create() options of the staged out-of-core build
-_STAGED = ("max_device_bytes", "spill_dir", "build_chunk_rows",
-           "shard_rows")
 
 
 def _check_unported(kw: dict) -> None:
@@ -228,27 +233,30 @@ class SuffixTable:
     def create(cls, name: str, codes, *, root: Optional[str] = None,
                is_dna: Optional[bool] = None, max_query_len: int = 128,
                overwrite: bool = False, staged: Optional[bool] = None,
+               max_device_bytes: Optional[int] = None,
+               spill_dir: Optional[str] = None,
+               build_chunk_rows: Optional[int] = None,
+               shard_rows: Optional[int] = None,
                device: DeviceLike = None, **kw) -> "SuffixTable":
         """Build AND persist version 1 of a named table under ``root``
         (``default_root()`` when None), registered in the root's
         :class:`~repro_torch.api.catalog.Catalog`; the build runs on
         ``device`` (``cuda`` when None).
 
+        Two build paths with bit-identical results, as in the reference:
+        the in-memory builder, and — when ``staged=True`` or any of
+        ``max_device_bytes`` / ``spill_dir`` / ``build_chunk_rows`` is
+        given — the out-of-core staged pipeline
+        (``core.build_pipeline``), which sorts device-budgeted chunks,
+        spills working state to host RAM or ``spill_dir``, and streams
+        finished SA shards of ``shard_rows`` rows straight into the
+        snapshot.
+
         Crash-safe order, the reference's: the catalog entry is written
-        BEFORE the snapshot, so a create that dies mid-persist leaves a
-        registered table without a published snapshot, which
-        ``Catalog.reconcile`` and a later ``create`` of the name remove
-        instead of refusing.  Only the in-memory builder is ported: the
-        staged build (``staged=True`` or any of ``max_device_bytes``,
-        ``spill_dir``, ``build_chunk_rows``, ``shard_rows``) raises
-        ``NotImplementedError``."""
-        staged_kw = {k: kw.pop(k) for k in _STAGED if k in kw}
-        if staged or (staged is None
-                      and any(v is not None for v in staged_kw.values())):
-            raise NotImplementedError(
-                "the staged out-of-core build (create(staged=True), "
-                "max_device_bytes, spill_dir) is not ported to "
-                "repro_torch yet")
+        BEFORE the snapshot, so a create that dies mid-persist (or
+        mid-shard-stream) leaves a registered table without a published
+        snapshot, which ``Catalog.reconcile`` and a later ``create`` of
+        the name remove instead of refusing."""
         _check_unported({k: v for k, v in kw.items() if k in _UNPORTED})
         _check_name(name)
         root = root or default_root()
@@ -268,6 +276,16 @@ class SuffixTable:
             shutil.rmtree(table_dir, ignore_errors=True)
         dev = resolve_device(device)
         codes, is_dna = _as_codes(codes, is_dna)
+        if staged is None:
+            staged = (max_device_bytes is not None or spill_dir is not None
+                      or build_chunk_rows is not None)
+        if staged:
+            return cls._create_staged(
+                name, codes, root=root, catalog=catalog, is_dna=is_dna,
+                max_query_len=max_query_len,
+                max_device_bytes=max_device_bytes, spill_dir=spill_dir,
+                build_chunk_rows=build_chunk_rows, shard_rows=shard_rows,
+                device=dev, **kw)
         sa, build = _build_sa(codes, dev)
         table = cls(codes, sa, is_dna=is_dna, max_query_len=max_query_len,
                     name=name, root=root, version=1, device=dev, **kw)
@@ -278,6 +296,52 @@ class SuffixTable:
         table._maybe_freeze()       # fm_threshold policy; re-persists frozen
         table._open_wal(fresh=True)
         return table
+
+    @classmethod
+    def _create_staged(cls, name: str, codes: np.ndarray, *, root: str,
+                       catalog: Catalog, is_dna: bool, max_query_len: int,
+                       max_device_bytes: Optional[int],
+                       spill_dir: Optional[str],
+                       build_chunk_rows: Optional[int],
+                       shard_rows: Optional[int], device: torch.device,
+                       **kw) -> "SuffixTable":
+        """The out-of-core create: the staged chunked build with SA
+        shards streamed into a ``ShardedSave`` as they finish, published
+        atomically, then reopened through :meth:`open` (which attaches
+        the commit log and the freeze policy)."""
+        chunk_rows = (int(build_chunk_rows) if build_chunk_rows
+                      else chunk_rows_for_budget(max_device_bytes))
+        if shard_rows is None:
+            shard_rows = chunk_rows
+        # a budget too small for one device sort raises before the
+        # catalog names the table
+        device_sort_rows(chunk_rows, max_device_bytes, device)
+        mgr = CheckpointManager(os.path.join(root, name),
+                                keep_n=int(kw.get("keep_n", 3)))
+        catalog.register(name, {"is_dna": is_dna,
+                                "max_query_len": max_query_len})
+        stage = mgr.stage_sharded(1)
+        try:
+            _, stats = staged_suffix_array(
+                codes, chunk_rows=chunk_rows,
+                max_device_bytes=max_device_bytes, spill_dir=spill_dir,
+                shard_rows=shard_rows, device=device,
+                emit_shard=lambda i, blk: stage.add_shard("sa_real", i,
+                                                          blk))
+            if "sa_real" not in stage._shards:   # empty corpus: no shards
+                stage.add_shard("sa_real", 0, np.zeros((0,), np.int32))
+            state = {"codes": codes,
+                     "mem_codes": np.zeros((0,), codes.dtype)}
+            extra = {"kind": "suffix_table", "name": name, "version": 1,
+                     "is_dna": is_dna, "max_query_len": max_query_len,
+                     "n_base": int(len(codes)), "runs": [], "mem_len": 0,
+                     "wal_seq": 0, "frozen": False, "fm_sample_rate": None,
+                     "build": stats.to_dict()}
+            stage.commit(state, extra)
+        except BaseException:
+            stage.abort()
+            raise
+        return cls.open(name, root=root, device=device, **kw)
 
     @classmethod
     def open(cls, name: str, *, root: Optional[str] = None,

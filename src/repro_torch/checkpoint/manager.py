@@ -1,6 +1,7 @@
 """Atomic, versioned snapshots — the numpy-only port of
 ``repro.checkpoint.manager`` (the parts a table needs: ``save``,
-``all_steps``, ``latest_step``, ``restore_arrays``, ``keep_n`` GC).
+``stage_sharded``, ``all_steps``, ``latest_step``, ``restore_arrays``,
+``keep_n`` GC).
 
 On-disk format, the reference's, so a snapshot written by either package
 restores in the other::
@@ -13,9 +14,16 @@ keys) as jax's key-path strings (``"['codes']"``); a state here is a
 flat dict of arrays.  A save writes ``step_XXXX.tmp`` and publishes it
 with one ``os.rename``, so a preempted save never corrupts the latest
 snapshot; ``.tmp`` dirs are ignored by :meth:`CheckpointManager.
-all_steps`.  The reference's shard-streaming save (``stage_sharded``)
-belongs to the staged build and is not ported; ``restore_arrays`` reads
-such a snapshot's shards all the same.
+all_steps`.
+
+Shard-streaming saves (:meth:`CheckpointManager.stage_sharded`, the
+reference's format): a large array is streamed into the staged
+``step_XXXX.tmp`` dir one ``shard_<name>_<i>.npy`` file at a time and
+the step is published with the same single ``os.rename``, its shards
+listed under ``"shards"`` in ``meta.json``.  The staged table build
+streams suffix-array shards this way without ever holding the whole
+array; a crash mid-stream leaves only a ``.tmp`` dir, which
+``all_steps`` ignores and ``Catalog.reconcile`` removes.
 """
 from __future__ import annotations
 
@@ -39,16 +47,81 @@ def by_key(arrays: dict) -> dict:
     return {re.sub(r"[^0-9A-Za-z_]", "", k): v for k, v in arrays.items()}
 
 
+def _host(arr) -> np.ndarray:
+    """A tensor or array as host numpy."""
+    if hasattr(arr, "detach"):
+        arr = arr.detach().cpu().numpy()
+    return np.asarray(arr)
+
+
 def flatten(state: dict) -> list[tuple[str, np.ndarray]]:
     """(path, array) per entry of a flat dict, in jax's flatten order
     (sorted keys); tensors come back to host numpy."""
-    out = []
-    for k in sorted(state):
-        v = state[k]
-        if hasattr(v, "detach"):                    # a torch tensor
-            v = v.detach().cpu().numpy()
-        out.append((key_path(k), np.asarray(v)))
-    return out
+    return [(key_path(k), _host(state[k])) for k in sorted(state)]
+
+
+class ShardedSave:
+    """One in-flight shard-streaming save: register -> stream shards ->
+    publish atomically.
+
+    Created by :meth:`CheckpointManager.stage_sharded`.  Shards of a named
+    array are appended in order with :meth:`add_shard`; :meth:`commit`
+    writes the remaining (small) state plus metadata and publishes the
+    whole step with one rename.  Until then nothing is visible:
+    ``all_steps()`` skips ``.tmp`` dirs, so a kill at ANY shard boundary
+    leaves the previous published version untouched and the partial
+    stream reclaimable (``Catalog.reconcile``)."""
+
+    def __init__(self, manager: "CheckpointManager", step: int):
+        self.manager = manager
+        self.step = int(step)
+        self.final = os.path.join(manager.dir, f"step_{step:010d}")
+        self.tmp = self.final + ".tmp"
+        if os.path.exists(self.tmp):
+            shutil.rmtree(self.tmp)
+        os.makedirs(self.tmp)
+        self._shards: dict[str, dict] = {}
+        self._done = False
+
+    def add_shard(self, name: str, i: int, arr) -> str:
+        """Stream shard ``i`` of array ``name`` (must arrive in order)."""
+        if self._done:
+            raise RuntimeError("ShardedSave already committed/aborted")
+        ent = self._shards.setdefault(name, {"count": 0, "dtype": None})
+        if i != ent["count"]:
+            raise ValueError(f"shard {i} of {name!r} out of order "
+                             f"(expected {ent['count']})")
+        arr = _host(arr)
+        np.save(os.path.join(self.tmp, f"shard_{name}_{i:06d}.npy"), arr)
+        ent["count"] += 1
+        ent["dtype"] = arr.dtype.name
+        return f"shard_{name}_{i:06d}.npy"
+
+    def commit(self, state: dict, extra: Optional[dict] = None) -> str:
+        """Write the non-sharded state + metadata and publish the step.
+        Sharded arrays come back from ``restore_arrays`` stitched under
+        their plain name, exactly like ``save``'d entries."""
+        flat = flatten(state)
+        arrays = {f"a{i}": x for i, (_, x) in enumerate(flat)}
+        meta = {"step": self.step,
+                "paths": [p for p, _ in flat],
+                "shards": self._shards,
+                "extra": extra or {}}
+        np.savez(os.path.join(self.tmp, "arrays.npz"), **arrays)
+        with open(os.path.join(self.tmp, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        if os.path.exists(self.final):
+            shutil.rmtree(self.final)
+        os.rename(self.tmp, self.final)          # atomic publish
+        self._done = True
+        self.manager._gc()
+        return self.final
+
+    def abort(self) -> None:
+        """Discard the staged shards (graceful-failure path; a hard kill
+        leaves the same end state via reconcile)."""
+        self._done = True
+        shutil.rmtree(self.tmp, ignore_errors=True)
 
 
 class CheckpointManager:
@@ -56,6 +129,10 @@ class CheckpointManager:
         self.dir = directory
         self.keep_n = keep_n
         os.makedirs(directory, exist_ok=True)
+
+    def stage_sharded(self, step: int) -> ShardedSave:
+        """Open a shard-streaming save of ``step`` (see ShardedSave)."""
+        return ShardedSave(self, step)
 
     def save(self, step: int, state: dict,
              extra: Optional[dict] = None) -> str:

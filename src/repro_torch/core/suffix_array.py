@@ -73,6 +73,16 @@ def build_suffix_array(codes) -> torch.Tensor:
     return sa.to(torch.int32)
 
 
+def build_suffix_array_staged(codes, **kw) -> np.ndarray:
+    """Out-of-core build (see ``repro_torch.core.build_pipeline``),
+    returning the assembled SA (numpy int32).  Accepts ``chunk_rows`` /
+    ``max_device_bytes`` / ``spill_dir`` / ``device`` etc.; bit-identical
+    to ``build_suffix_array``."""
+    from repro_torch.core.build_pipeline import staged_suffix_array
+    sa, _ = staged_suffix_array(codes, **kw)
+    return sa
+
+
 def rank_array(sa: torch.Tensor) -> torch.Tensor:
     """Inverse permutation: rank[pos] = index of suffix pos in the SA."""
     n = int(sa.shape[0])

@@ -22,12 +22,15 @@ DIR, later runs re-open it (no rebuild) and replay its commit log
 ``stats()`` tree into ``root/<table>/metrics.jsonl``; ``--dump-stats``
 aggregates that feed and exits without importing torch.
 
+``--max-device-bytes`` / ``--spill-dir`` with ``--root`` build the
+table out of core under that device budget (``[build ] mode=staged``).
+``--tablets N`` with ``--root`` range-splits the table after the write
+demo and serves it from N tablet worker processes (x
+``--plane-replicas``), answering the same typed queries through the
+router (``[plane ]``).
+
 Not carried over from the reference: ``--tuned`` and ``--host-devices``
-(they set XLA/TF environment only), and ``--plane-replicas`` (it sizes
-the serving plane).  ``--tablets N`` with N > 0 raises: the serving
-plane is not ported yet.  ``--max-device-bytes`` and
-``--spill-dir`` with ``--root`` reach ``create``, which raises on the
-staged build (not ported yet).
+(they set XLA/TF environment only).
 """
 from __future__ import annotations
 
@@ -125,12 +128,14 @@ def main(argv=None):
                          "arriving within this many ms share ONE fsync "
                          "before acking (0 = fsync per append)")
     ap.add_argument("--max-device-bytes", type=int, default=None,
-                    help="per-device build budget in bytes for the staged "
-                         "out-of-core build (needs --root; the staged "
-                         "build is not ported yet, so create raises)")
+                    help="per-device build budget in bytes: create runs "
+                         "the staged out-of-core pipeline with chunk_rows "
+                         "= budget/24 instead of one in-memory sort "
+                         "(needs --root)")
     ap.add_argument("--spill-dir", default=None,
-                    help="spill dir of the staged build (needs --root; "
-                         "not ported yet, so create raises)")
+                    help="spill the staged build's working arrays to "
+                         "files under this dir instead of host RAM "
+                         "(implies the staged pipeline; needs --root)")
     ap.add_argument("--root", default=None,
                     help="catalog root dir; omit for an in-memory table")
     ap.add_argument("--table", default="dna_serve",
@@ -151,19 +156,19 @@ def main(argv=None):
                          "metrics.jsonl serving feed and exit (no torch "
                          "import, no table open)")
     ap.add_argument("--tablets", type=int, default=0,
-                    help="the serving plane's tablet count; not ported "
-                         "yet, so any N > 0 raises")
+                    help="after the write demo, range-split the table "
+                         "into this many tablets and serve them from "
+                         "separate worker processes (needs --root)")
+    ap.add_argument("--plane-replicas", type=int, default=1,
+                    help="worker processes per tablet in the plane demo "
+                         "(2+ enables real hedged reads + failover)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     if args.dump_stats:
         return _dump_stats(args)
 
-    if args.tablets > 0:
-        raise NotImplementedError(
-            "--tablets: the tablet serving plane is not ported to "
-            "repro_torch yet (ROADMAP queue 1, item 4)")
-
+    import numpy as np
     import torch
 
     from repro_torch.api import Database, Query, SuffixTable
@@ -315,6 +320,40 @@ def main(argv=None):
     print(f"[write ] append 1000 bases: count({planted[:10]}...) "
           f"{before} -> {after} (merged read); sealed into run "
           f"#{n_runs} (count still {sealed}); major-compacted to v{v}")
+
+    # the serving plane: range-split into tablets, serve from separate
+    # worker processes, answer the same typed queries through the router
+    if args.tablets > 0:
+        if args.root is None:
+            print("[clamp ] --tablets needs --root (tablet workers serve "
+                  "a persisted snapshot); skipping the plane demo")
+        else:
+            from repro_torch.serving.plane import ServingPlane
+            t2 = time.time()
+            with ServingPlane.deploy(args.root, args.table, args.tablets,
+                                     replicas=args.plane_replicas,
+                                     metrics_interval_s=1.0) as plane:
+                alias = args.table + "@plane"
+                remote = db.connect_plane(args.table, attach_as=alias)
+                probe = hot + [planted, "A", "ACG"]
+                local_r = db.query(Query.scan(args.table, probe, top_k=4))
+                plane_r = db.query(Query.scan(alias, probe, top_k=4))
+                same = (np.array_equal(local_r.count, plane_r.count)
+                        and np.array_equal(local_r.first_pos,
+                                           plane_r.first_pos)
+                        and np.array_equal(local_r.positions,
+                                           plane_r.positions))
+                print(f"[plane ] {args.tablets} tablet(s) x "
+                      f"{args.plane_replicas} replica(s) up in "
+                      f"{time.time() - t2:.1f}s: routed scan identical="
+                      f"{same} over {len(probe)} probes")
+                rs = remote.router.stats()
+                print(f"[plane ] router rpcs={rs['rpcs']} "
+                      f"hedge_fired={rs['hedge_fired']} "
+                      f"hedge_wins={rs['hedge_wins']} "
+                      f"failovers={rs['failovers']} "
+                      f"p50={rs['p50_ms']}ms p95={rs['p95_ms']}ms")
+                del plane
 
     # the table's stats() schema, the reference's
     st = table.stats()

@@ -1,16 +1,28 @@
 """repro_torch.serving — the scan service (``HedgedScanService``), the
-metrics feed and per-query tracing, ported from ``repro.serving``.
+multi-process serving plane (``ServingPlane``, ``TabletRouter``,
+``RemoteTable``), the metrics feed and per-query tracing, ported from
+``repro.serving``.
 
-Exports resolve lazily (PEP 562), as the reference's do, so the
-standard-library-only modules (``metrics``, ``trace``) import without
-the table and its kernels' wrappers.  The reference's LM serving
-functions and its multi-process serving plane are not ported yet.
+Exports resolve lazily (PEP 562), as the reference's do, so the plane's
+numpy-only modules (``rpc``, ``router``, ``plane``, ``tablet_server``,
+``metrics``, ``trace``) import without torch: tablet worker processes
+start in milliseconds.  The reference's LM serving functions are not
+ported yet.
 """
 import importlib
 
 _EXPORTS = {
     "HedgedScanService": "repro_torch.serving.engine",
     "ScanPlanner": "repro_torch.core.planner",
+    "ServingPlane": "repro_torch.serving.plane",
+    "split_table": "repro_torch.serving.plane",
+    "TabletRouter": "repro_torch.serving.router",
+    "RemoteTable": "repro_torch.serving.router",
+    "OverloadedError": "repro_torch.serving.router",
+    "connect": "repro_torch.serving.router",
+    "RpcClient": "repro_torch.serving.rpc",
+    "RpcServer": "repro_torch.serving.rpc",
+    "RpcError": "repro_torch.serving.rpc",
     "aggregate_metrics": "repro_torch.serving.metrics",
 }
 

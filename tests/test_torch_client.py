@@ -130,8 +130,10 @@ def test_database_routes_and_lifecycle(tmp_path):
     # the reference's table
     db = T.Database(str(tmp_path / "ref"), device="cpu")
     assert int(db.query(T.Query.count("dna", ["A"])).count[0]) == want[0]
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        db.connect_plane("dna")
+    with pytest.raises(ValueError, match="already attached"):
+        db.connect_plane("dna")             # the open table holds the name
+    with pytest.raises(FileNotFoundError):    # no plane deployed for it
+        db.connect_plane("dna", attach_as="dna@plane")
     made = db.create_table("dna3", RC.random_dna(200, seed=3), is_dna=True)
     assert made.device.type == "cpu"           # the handle's device
     db.drop_table("dna3")

@@ -574,3 +574,84 @@ def test_database_round_trip_on_the_card_matches_cpu(cuda, tmp_path):
     assert len(a_pages) == len(b_pages) > 1 and a_v == b_v == 2
     for x, y in zip(a_pages, b_pages):
         np.testing.assert_array_equal(y, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,budget", [(200_000, 8 << 20),
+                                      (1 << 22, 12 << 20)])
+def test_staged_build_on_the_card_within_budget(cuda, tmp_path, n, budget):
+    """The staged build sorts its chunks on the card: its SA equals the
+    in-memory card build and the CPU build, and the card's measured peak
+    over the build stays within ``max_device_bytes``."""
+    from repro_torch.api import SuffixTable
+    from repro_torch.core import build_pipeline as BP
+    from repro_torch.core.suffix_array import build_suffix_array
+    codes = C.random_dna(n, seed=n)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sa, stats = BP.staged_suffix_array(codes, max_device_bytes=budget,
+                                       spill_dir=str(tmp_path / "spill"),
+                                       device=cuda)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - resident
+    assert peak <= budget, (peak, budget)
+    assert stats.chunk_rows == budget // BP.BYTES_PER_ROW
+    assert stats.n_chunks == -(-n // stats.chunk_rows)
+    mem = build_suffix_array(torch.from_numpy(codes).to(cuda))
+    assert np.array_equal(sa, mem.cpu().numpy())
+    cpu_sa, _ = BP.staged_suffix_array(codes, max_device_bytes=budget,
+                                       device="cpu")
+    assert np.array_equal(sa, cpu_sa)
+    assert list((tmp_path / "spill").iterdir()) == []
+    if n <= 200_000:                  # the table path: create, reopen
+        t = SuffixTable.create("s", codes, root=str(tmp_path / "root"),
+                               max_device_bytes=budget, device=cuda)
+        assert t.stats()["build"]["mode"] == "staged"
+        assert torch.equal(t.store.sa[t.store.pad_count:].cpu(),
+                           mem.cpu())
+        pats = Q.random_patterns(64, 1, 20, seed=1)
+        want = SuffixTable.from_codes(codes, device="cpu").scan(pats)
+        got = t.scan(pats)
+        np.testing.assert_array_equal(got.count, want.count)
+        np.testing.assert_array_equal(got.first_pos, want.first_pos)
+        t.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_rows", [None, 1 << 14, 256])
+def test_staged_create_without_budget_sorts_whole_chunks(
+        cuda, tmp_path, monkeypatch, chunk_rows):
+    """Without ``max_device_bytes`` the card sorts each chunk whole, as
+    the reference does: every round merges ``n_chunks`` sorted runs.  A
+    budget too small for one device sort raises before the catalog
+    names the table."""
+    from repro_torch.api import SuffixTable
+    from repro_torch.api.catalog import Catalog
+    from repro_torch.core import build_pipeline as BP
+    from repro_torch.core.suffix_array import build_suffix_array
+    runs_a_round = []
+    merge = BP.merge_sorted_runs
+
+    def counting(runs, **kw):
+        runs_a_round.append(len(runs))
+        return merge(runs, **kw)
+
+    monkeypatch.setattr(BP, "merge_sorted_runs", counting)
+    n = 100_000
+    codes = C.random_dna(n, seed=17)
+    root = str(tmp_path / "root")
+    t = SuffixTable.create("s", codes, root=root, staged=True,
+                           build_chunk_rows=chunk_rows, device=cuda)
+    b = t.stats()["build"]
+    assert b["mode"] == "staged"
+    assert b["chunk_rows"] == (chunk_rows or BP.DEFAULT_CHUNK_ROWS)
+    assert b["n_chunks"] == -(-n // b["chunk_rows"])
+    assert runs_a_round == [b["n_chunks"]] * b["rounds"]
+    mem = build_suffix_array(torch.from_numpy(codes).to(cuda))
+    assert torch.equal(t.store.sa[t.store.pad_count:].cpu(), mem.cpu())
+    t.close()
+    with pytest.raises(ValueError, match="max_device_bytes"):
+        SuffixTable.create("tiny", codes, root=root, max_device_bytes=100_000,
+                           device=cuda)
+    assert "tiny" not in Catalog(root)

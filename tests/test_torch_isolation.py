@@ -56,6 +56,30 @@ def test_every_module_imports_with_jax_blocked():
     assert proc.stdout.strip() == "ok"
 
 
+def test_plane_modules_import_with_torch_blocked():
+    """The plane's worker contract, the reference's: the rpc, router,
+    plane and tablet-server modules run on numpy alone, so a worker
+    starts without the accelerator runtime."""
+    mods = [f"repro_torch.serving.{m}"
+            for m in ("rpc", "router", "plane", "tablet_server")]
+    code = ("import sys\n"
+            "for m in ('torch', 'jax', 'repro'):\n"
+            "    sys.modules[m] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "from repro_torch.serving import ServingPlane, connect\n"
+            "assert not any(k == 'torch' or k.startswith('torch.') "
+            "for k, v in sys.modules.items() if v is not None)\n"
+            "print('ok')\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "ok"
+
+
 @pytest.mark.parametrize("path", sorted([
     *[os.path.join(r, f) for r, _d, fs in os.walk(PKG) for f in fs
       if f.endswith(".py")],

@@ -201,10 +201,16 @@ def test_create_registration_is_crash_safe(tmp_path):
                               device=CPU).version == 1
     with pytest.raises(FileExistsError):
         SuffixTable.create("half", codes, root=root, device=CPU)
+    # the staged build is chosen by any of its options, as in the
+    # reference, and gives the in-memory build's SA
+    want = SuffixTable.open("half", root=root, device=CPU).store
     for kw in ({"staged": True}, {"max_device_bytes": 1 << 20},
-               {"spill_dir": root}):
-        with pytest.raises(NotImplementedError):
-            SuffixTable.create("x", codes, root=root, device=CPU, **kw)
+               {"spill_dir": os.path.join(root, "spill")}):
+        x = SuffixTable.create("x", codes, root=root, device=CPU,
+                               overwrite=True, **kw)
+        assert x.stats()["build"]["mode"] == "staged"
+        assert torch.equal(x.store.sa, want.sa)
+        x.close()
     cat = Catalog(root)
     cat.drop_table("half")
     assert "half" not in cat.list_tables()

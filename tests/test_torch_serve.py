@@ -2,8 +2,8 @@
 ``tests/test_serve.py``'s TINY sizes, beside ``repro.launch.serve`` on
 the same seed: the printed result lines must be equal, and the port's
 flags (reopen, ``--no-wal``, the ``--max-pattern`` clamp, ``--freeze``,
-``--dump-stats`` on a feed the port wrote) must behave as the
-reference's."""
+the staged build, the serving plane, ``--dump-stats`` on a feed the
+port wrote) must behave as the reference's."""
 import ast
 import os
 import subprocess
@@ -85,6 +85,35 @@ def test_serve_create_then_reopen_honors_flags(tmp_path, capsys):
     assert f"[open ] v3, {1500 + 2 * (21 + 993) + 32} bases" in third
 
 
+def test_serve_staged_build_and_plane_match_reference(tmp_path, capsys):
+    """--max-device-bytes/--spill-dir build out of core (the reference's
+    ``[build ] mode=staged`` record, the spill dir emptied) and --tablets
+    with --plane-replicas serves the table from worker processes with
+    the single-process answers; the result lines equal the
+    reference's."""
+    outs = {}
+    for tag, main in (("port", serve.main), ("ref", ref_serve.main)):
+        spill = tmp_path / f"spill_{tag}"
+        args = TINY + ["--root", str(tmp_path / tag), "--max-device-bytes",
+                       "24000", "--spill-dir", str(spill), "--tablets", "2",
+                       "--plane-replicas", "2"]
+        outs[tag] = _run(main, args + (CPU if tag == "port" else []),
+                         capsys)
+        assert os.listdir(spill) == []
+    out, want = outs["port"], outs["ref"]
+    assert _lines(out) == _lines(want)
+    build = [ln.rsplit(" bases_per_s=", 1)[0] for o in (out, want)
+             for ln in o.splitlines() if ln.startswith("[build ]")]
+    assert build[0] == build[1]
+    assert "mode=staged" in build[0] and "chunks=2x1000" in build[0]
+    plane = [ln for ln in out.splitlines() if ln.startswith("[plane ]")]
+    assert len(plane) == 2
+    assert "2 tablet(s) x 2 replica(s)" in plane[0]
+    assert "identical=True over 7 probes" in plane[0]
+    assert "identical=True" in next(ln for ln in want.splitlines()
+                                    if ln.startswith("[plane ]"))
+
+
 def test_serve_no_wal_flag(tmp_path, capsys):
     root = str(tmp_path / "root")
     out = _run(serve.main, TINY + CPU + ["--root", root, "--no-wal"],
@@ -154,5 +183,7 @@ def test_serve_rejects_what_is_not_ported(capsys):
         serve.main(["--queries", "not-a-number"])
     with pytest.raises(SystemExit):                # XLA-only, not carried
         serve.main(TINY + CPU + ["--host-devices", "2"])
-    with pytest.raises(NotImplementedError, match="serving plane"):
-        serve.main(TINY + CPU + ["--tablets", "2"])
+    # the plane needs a persisted table: without --root it is skipped
+    out = _run(serve.main, TINY + CPU + ["--tablets", "2"], capsys)
+    assert "[clamp ] --tablets needs --root" in out
+    assert "[plane ]" not in out
