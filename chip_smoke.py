@@ -97,10 +97,37 @@ through the public entry points at chromosome scale:
                  answers; ``count`` again after ``kill -9`` of one
                  replica of tablet 0, and after its restart one batch of
                  ``scan(top_k=4)`` and the text CRC it had before;
-18. ``[kernels]`` every kernel's launches on each of the eight paths
+18. ``[mesh]``   ``REPRO_TORCH_HOST_DEVICES=8`` in the process: 8
+                 tablets of 2**23 rows on the card.  ``[mesh:build]``
+                 ``SuffixTable.from_codes`` of the 2**26 bases (the
+                 distributed bitonic build; its SA must equal
+                 ``[build]``'s, its seconds and device peak beside
+                 them); ``[mesh:broadcast]`` (``routed_min_batch`` above
+                 the batch) and ``[mesh:routed]`` (capacity factor 2.0,
+                 then 0.25, where overflows must be retried): counts and
+                 first_pos equal ``[count]``'s, the planner's four fields
+                 the plain search's; ``[mesh:merged]`` the three appends
+                 and the workload, equal to ``[merged]``;
+                 ``[mesh:compact]`` ``compact()`` with
+                 ``distributed_build`` (SA equal to a single-device
+                 build); ``[mesh-sort-footprint]`` one super-chunk
+                 sort over the 8 tablets (2**14 and 2**16 rows a tablet,
+                 random and tie-heavy keys) holds no more device bytes
+                 than the staged build sizes its mesh sorts by;
+                 ``[mesh:staged]`` ``create`` of 2**22 bases under a
+                 67,108,864-byte budget of the card the 8 tablets share
+                 (SA equal to the in-memory build, the build's measured
+                 device peak within the budget; a 6,400,000-byte budget
+                 raises before the catalog names the table);
+                 ``[mesh:kernels]`` each kernel of
+                 the path (``bounded_search`` per tablet, the routed
+                 owner choice's ``pattern_compare``, ``tier_scan``,
+                 ``pack2bit``) against its plain version on the phase's
+                 inputs;
+19. ``[kernels]`` every kernel's launches on each of the nine paths
                  (serving 1-8, compaction 9-10, persistence 11-12, long 13,
-                 client 14, serve 15, staged 16, plane 17; the counts are
-                 set to 0 before each and read after it) and
+                 client 14, serve 15, staged 16, plane 17, mesh 18; the
+                 counts are set to 0 before each and read after it) and
                  its result held against its plain PyTorch version(s)
                  on inputs taken from that run, and timed, between
                  phases 12 and 13; a sample of counts is
@@ -115,8 +142,11 @@ through the public entry points at chromosome scale:
 ``pattern_compare`` runs on the serving path as the epilogue of the
 ``bounded_search`` launch (``pattern_scan.bounded_match_cuda``): its
 standalone kernel must show no launch there, and ``found == (count >
-0)`` must hold on every query of every live phase; the epilogue's four
-outputs are held against their plain version on a whole batch.
+0)`` must hold on every query of every live single-device phase; the
+epilogue's four outputs are held against their plain version on a whole
+batch.  On the mesh path the standalone kernel runs by design (the
+routed owner choice), and a mesh search is ``bounded_search`` bounds
+only.
 
 It prints one JSON line of per-kernel numbers (``ms``: time per call as
 the host issues them; ``device_ms``: device time of launches queued back
@@ -163,6 +193,11 @@ WHOLE_LEN = 2**20           # [staged]: bases of the build without a budget
 PLANE_TABLETS = 4           # [plane]: tablets x replicas
 PLANE_REPLICAS = 2
 PLANE_LOCATE = 2048         # [plane]: patterns located one call each
+MESH_TABLETS = 8            # [mesh]: tablets on the one card
+MESH_STAGED_LEN = 2**22     # [mesh:staged]: bases
+MESH_STAGED_BUDGET = 67_108_864  # [mesh:staged]: the card's bytes, 8 tablets
+MESH_TOO_SMALL = 6_400_000  # [mesh:staged]: a budget 8 tablets cannot share
+MESH_FOOTPRINT_ROWS = (2**14, 2**16)  # [mesh-sort-footprint]: a tablet's
 
 # Published H100 SXM peaks (NVIDIA data sheet), used for the bounds.
 MEM_BYTES_PER_S = 3.35e12
@@ -554,6 +589,7 @@ def main() -> int:
           f"resident_bytes={torch.cuda.memory_allocated()} "
           f"peak_bytes={torch.cuda.max_memory_allocated()}", flush=True)
     check(table.store.device.type == "cuda", "table lives on the card")
+    build_s0, build_peak0 = dt, torch.cuda.max_memory_allocated()
     base_sa = table.store.sa[table.store.pad_count:].cpu().numpy()
 
     patterns = Q.random_patterns(N_QUERIES, 1, 100, seed=0)
@@ -571,6 +607,8 @@ def main() -> int:
 
     Q.query = recording_query
 
+    served_qps: dict = {}
+
     def serve(tag: str, table) -> tuple[np.ndarray, np.ndarray]:
         """The workload through ``table.scan``: (counts, first_pos)."""
         lat, counts, firsts = [], [], []
@@ -585,6 +623,7 @@ def main() -> int:
             firsts.append(out.first_pos)
         total = time.perf_counter() - t_all
         c = np.concatenate(counts)
+        served_qps[tag] = len(c) / total
         lat = np.asarray(lat)
         print(f"[{tag}] queries={len(c)} batches={len(lat)} "
               f"p50_ms={np.percentile(lat, 50):.4f} "
@@ -593,7 +632,7 @@ def main() -> int:
               f"found={int((c > 0).sum())}", flush=True)
         check(c.shape == (N_QUERIES,) and bool((c >= 0).all()),
               f"{tag}: counts have the expected shape and are >= 0")
-        if not table.is_frozen:
+        if not table.is_frozen and table.mesh is None:
             n_q = sum(int(r.count.shape[0]) for r in live_results)
             ok = all(torch.equal(r.found, r.count > 0) for r in live_results)
             print(f"[found:{tag}] searches={len(live_results)} "
@@ -1618,10 +1657,294 @@ def main() -> int:
             pdb.close()
         shutil.rmtree(sroot, ignore_errors=True)
 
+    # ------------ [mesh] path: 8 tablets on the one card ----------------
+    # REPRO_TORCH_HOST_DEVICES=8 (the counterpart of 8 XLA host devices):
+    # every table below resolves a mesh of 8 tablets on cuda:0 (from_codes,
+    # compact, create(staged=True)); each phase checks against the
+    # single-device phases above
+    from repro_torch.core.tablet import shard_store
+    from repro_torch.launch.mesh import HOST_DEVICES_ENV
+    _build.reset_launches()
+    os.environ[HOST_DEVICES_ENV] = str(MESH_TABLETS)
+    mroot = tempfile.mkdtemp(prefix="chip_smoke_mesh_",
+                             dir=os.path.join(ROOT, "build"))
+    mesh_t0 = time.perf_counter()
+    mesh_secs: dict = {}
+    try:
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mt = SuffixTable.from_codes(base, is_dna=True,
+                                    max_query_len=MAX_QUERY_LEN,
+                                    memtable_limit=MEMTABLE_LIMIT)
+        torch.cuda.synchronize()
+        mesh_secs["build"] = time.perf_counter() - t0
+        mesh_peak = torch.cuda.max_memory_allocated() - resident
+        msa_ok = np.array_equal(
+            mt.store.sa[mt.store.pad_count:].cpu().numpy(), base_sa)
+        print(f"[mesh:build] n={TEXT_LEN} tablets={mt.planner.num_tablets} "
+              f"rows_per_tablet={mt.store.tablet_rows(MESH_TABLETS)} "
+              f"method=bitonic seconds={mesh_secs['build']:.4f} "
+              f"peak_bytes_over_resident={mesh_peak} "
+              f"build_seconds={build_s0:.4f} "
+              f"build_peak_bytes={build_peak0} "
+              f"sa_equals_build={str(msa_ok).lower()} card=\"{smi}\"",
+              flush=True)
+        check(mt.mesh is not None
+              and mt.planner.num_tablets == MESH_TABLETS
+              and all(d.type == "cuda" for d in mt.mesh.devices),
+              "[mesh:build] the table resolved 8 tablets on the card")
+        check(msa_ok, "[mesh:build] the distributed SA equals [build]'s "
+              "on every row")
+
+        def exact_vs_plain() -> bool:
+            """The planner's answers over the workload (its planned mode,
+            retries included) equal the plain binary search over the
+            table's whole SA: found, count, first_rank, first_pos."""
+            ok = True
+            for i in range(0, N_QUERIES, BATCH):
+                pp, pl = mt.planner.encode(patterns[i:i + BATCH])
+                got = mt.planner.scan_encoded(pp, pl)
+                want = bounded_match_plain(mt.store, pp, pl)
+                ok &= all(torch.equal(g, w) for g, w in zip(
+                    (got.found, got.count, got.first_rank, got.first_pos),
+                    want))
+            return bool(ok)
+
+        # [mesh:broadcast] (routed_min_batch above the batch) and
+        # [mesh:routed] at capacity_factor 2.0, then 0.25
+        for tag, rmb, cf in (("mesh:broadcast", 1024, 2.0),
+                             ("mesh:routed", 64, 2.0),
+                             ("mesh:routed-0.25", 64, 0.25)):
+            mt.planner.routed_min_batch, mt.planner.capacity_factor = rmb, cf
+            mt.planner.reset_stats()
+            mt.clear_cache()
+            t0 = time.perf_counter()
+            c, f = serve(tag, mt)
+            mesh_secs[tag] = time.perf_counter() - t0
+            st = mt.planner.stats
+            served = dict(_build.LAUNCHES)    # the check's launches are
+            exact = exact_vs_plain()          # not the path's
+            _build.LAUNCHES.update(served)
+            print(f"[{tag}:plan] capacity_factor={cf} routed_min_batch="
+                  f"{rmb} modes={st.mode_counts} retried="
+                  f"{st.retried_overflow}/{st.retried_saturated}/"
+                  f"{st.retried_inexact_rank} queries_per_s="
+                  f"{served_qps[tag]:.1f} count_queries_per_s="
+                  f"{served_qps['count']:.1f} seconds={mesh_secs[tag]:.4f} "
+                  f"rank_equals_single={str(exact).lower()}", flush=True)
+            mode = "broadcast" if rmb > BATCH else "routed"
+            check(np.array_equal(c, base_counts)
+                  and np.array_equal(f, base_first) and exact,
+                  f"[{tag}] counts, first_pos and first_rank equal the "
+                  f"single-device [count] answers")
+            check(st.mode_counts[mode] > 0,
+                  f"[{tag}] the planner chose {mode}")
+            if cf < 1:
+                check(st.retried_overflow > 0,
+                      f"[{tag}] dispatch overflows were retried")
+
+        # [mesh:merged] the three appends, then the workload
+        mt.planner.routed_min_batch, mt.planner.capacity_factor = 64, 2.0
+        append_all("mesh:append", mt)
+        t0 = time.perf_counter()
+        mmc, mmf = serve("mesh:merged", mt)
+        mesh_secs["merged"] = time.perf_counter() - t0
+        check(np.array_equal(mmc, merged_counts)
+              and np.array_equal(mmf, merged_first),
+              "[mesh:merged] counts and first_pos equal [merged]")
+        # inputs of the kernel checks below: the merged read's tier stack,
+        # the tablets of the uncompacted base, the first batch
+        mstack = mt._tierset().stack
+        mtablets = mt.planner.tablets()
+        mpatt, mplen = mt.planner.encode(patterns[:BATCH])
+        mpacked = mt.store.text_packed
+
+        # [mesh:compact] compact() with distributed_build: a full rebuild
+        # over the mesh, held against a single-device build
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mver = mt.compact()
+        torch.cuda.synchronize()
+        mesh_secs["compact"] = time.perf_counter() - t0
+        rebuilt = build_suffix_array(torch.from_numpy(text).to(dev))
+        mcomp_ok = torch.equal(mt.store.sa[mt.store.pad_count:], rebuilt)
+        del rebuilt
+        print(f"[mesh:compact] n={len(text)} version={mver} "
+              f"distributed_build={str(mt._distributed_build).lower()} "
+              f"seconds={mesh_secs['compact']:.4f} merge_seconds="
+              f"{merge_s:.4f} sa_equals_single_build="
+              f"{str(mcomp_ok).lower()}", flush=True)
+        check(mcomp_ok and mver == 1 and mt.mesh is not None,
+              "[mesh:compact] the rebuilt SA equals a single-device build "
+              "on every row")
+        mcc, mcf = serve("mesh:compacted", mt)
+        check(np.array_equal(mcc, merged_counts)
+              and np.array_equal(mcf, merged_first),
+              "[mesh:compacted] counts and first_pos equal [merged]")
+        mt.close()
+        del mt
+
+        # [mesh-sort-footprint] one super-chunk sort over the 8 tablets of
+        # the card against the figure the staged build sizes it by
+        from repro_torch.api.catalog import Catalog
+        from repro_torch.core.dsa import make_superchunk_sorter
+        from repro_torch.launch.mesh import table_mesh
+        smesh = table_mesh(dev)
+        msort = make_superchunk_sorter(smesh)
+        mfoot = {}
+        for f_rows in MESH_FOOTPRINT_ROWS:
+            f_n = f_rows * MESH_TABLETS
+            f_rng = np.random.default_rng(f_rows)
+            f_idx = np.arange(f_n, dtype=np.int32)
+            for f_kind, f_key, f_nxt in (
+                    ("random", f_rng.integers(0, f_n, f_n),
+                     f_rng.integers(-1, f_n, f_n)),
+                    ("ties", f_rng.integers(0, 4, f_n), np.zeros(f_n))):
+                f_key, f_nxt = f_key.astype(np.int32), f_nxt.astype(np.int32)
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                f_got = msort(f_key, f_nxt, f_idx)
+                torch.cuda.synchronize()
+                mfoot[(f_rows, f_kind)] = (torch.cuda.max_memory_allocated()
+                                           - before)
+                check(np.array_equal(f_got[2], f_idx[np.lexsort(
+                    (f_idx, f_nxt, f_key))]),
+                      f"[mesh-sort-footprint] the {f_kind} super-chunk of "
+                      f"{f_rows} rows a tablet is sorted")
+        print("[mesh-sort-footprint] tablets=" + str(MESH_TABLETS) + " "
+              + " ".join(f"rows_per_tablet={r}:{k}:peak_bytes={v},"
+                         f"bytes_per_tablet_row={v / (r * MESH_TABLETS):.4f}"
+                         for (r, k), v in mfoot.items())
+              + f" model_bytes_per_row={BP.MESH_SORT_BYTES_PER_ROW} "
+              f"model_fixed_bytes={BP.MESH_SORT_FIXED_BYTES}", flush=True)
+        check(all(v <= MESH_TABLETS * (r * BP.MESH_SORT_BYTES_PER_ROW
+                                       + BP.MESH_SORT_FIXED_BYTES)
+                  for (r, _), v in mfoot.items()),
+              "[mesh-sort-footprint] a super-chunk sort holds no more "
+              "device bytes than the staged build sizes it by")
+        del f_got, f_key, f_nxt, f_idx
+
+        # [mesh:staged] create(staged=True) under a budget of the card the
+        # 8 tablets share: one 8-tablet sample sort per super-chunk of
+        # mesh_sort_rows rows a tablet; the build's device peak measured
+        small = codec.random_dna(MESH_STAGED_LEN, seed=8)
+        mpeaks = []
+
+        def mesh_measured_build(*args, **kw):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = inner_build(*args, **kw)
+            torch.cuda.synchronize()
+            mpeaks.append(torch.cuda.max_memory_allocated() - before)
+            return out
+
+        table_mod.staged_suffix_array = mesh_measured_build
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mst = SuffixTable.create("mesh_staged", small, root=mroot,
+                                     is_dna=True,
+                                     max_query_len=MAX_QUERY_LEN,
+                                     max_device_bytes=MESH_STAGED_BUDGET)
+            torch.cuda.synchronize()
+            mesh_secs["staged"] = time.perf_counter() - t0
+        finally:
+            table_mod.staged_suffix_array = inner_build
+        too_small = False
+        try:
+            SuffixTable.create("mesh_tiny", small, root=mroot,
+                               is_dna=True, max_query_len=MAX_QUERY_LEN,
+                               max_device_bytes=MESH_TOO_SMALL)
+        except ValueError:
+            too_small = "mesh_tiny" not in Catalog(mroot)
+        sb = mst.stats()["build"]
+        tablet_rows = BP.mesh_sort_rows(sb["chunk_rows"],
+                                        MESH_STAGED_BUDGET, smesh)
+        super_rows = tablet_rows * MESH_TABLETS
+        mst_ok = torch.equal(
+            mst.store.sa[mst.store.pad_count:],
+            build_suffix_array(torch.from_numpy(small).to(dev)))
+        print(f"[mesh:staged] n={MESH_STAGED_LEN} tablets="
+              f"{mst.planner.num_tablets} rounds={sb['rounds']} "
+              f"chunks={sb['n_chunks']}x{sb['chunk_rows']} "
+              f"rows_per_tablet={tablet_rows} super_chunk_rows="
+              f"{super_rows} runs_per_round="
+              f"{-(-MESH_STAGED_LEN // super_rows)} "
+              f"seconds={mesh_secs['staged']:.4f} build_seconds="
+              f"{sb['elapsed_s']:.4f} measured_peak_bytes={mpeaks[0]} "
+              f"max_device_bytes={MESH_STAGED_BUDGET} "
+              f"modelled_peak_device_bytes={sb['peak_device_bytes']} "
+              f"too_small_refused={str(too_small).lower()} "
+              f"sa_equals_in_memory={str(mst_ok).lower()} "
+              f"card=\"{smi}\"", flush=True)
+        check(mst_ok and sb["mode"] == "staged"
+              and mst.planner.num_tablets == MESH_TABLETS,
+              "[mesh:staged] the staged mesh build's SA equals the "
+              "in-memory build")
+        check(mpeaks[0] <= MESH_STAGED_BUDGET,
+              "[mesh:staged] the build's measured device peak is within "
+              "max_device_bytes on the card the 8 tablets share")
+        check(too_small, f"[mesh:staged] max_device_bytes={MESH_TOO_SMALL} "
+              f"raised before the catalog named the table")
+        mst.close()
+        del mst
+        torch.cuda.synchronize()
+        mesh_launches = dict(_build.LAUNCHES)
+        print(f"[mesh-launches] " + " ".join(
+            f"{k}={v}" for k, v in mesh_launches.items()), flush=True)
+        for k in ("pack2bit", "bounded_search", "pattern_compare",
+                  "tier_scan"):
+            check(mesh_launches[k] > 0, f"{k} launched on the [mesh] path")
+
+        # each kernel of the mesh path against its plain version on this
+        # phase's inputs (outside the counted path)
+        e_bs = max(max_abs_err(
+            torch, bounded_search_cuda(t.sa, t.text_packed, t.n_real, mpatt,
+                                       mplen, int(t.sa.shape[0])),
+            Q.search_bounds_plain(t, mpatt, mplen))
+            for t in mtablets)
+        split = torch.stack([t.sa[0] for t in mtablets])
+        Bl = BATCH // MESH_TABLETS
+        cargs = (codec.extract_window(mpacked, split, W).repeat(Bl, 1),
+                 mpatt[:Bl].repeat_interleave(MESH_TABLETS, 0),
+                 mplen[:Bl].repeat_interleave(MESH_TABLETS),
+                 split.repeat(Bl))
+        e_pc = max_abs_err(
+            torch, pattern_compare_cuda(*cargs, n_real=TEXT_LEN),
+            ref.pattern_compare_ref(cargs[0].T, cargs[1].T, *cargs[2:],
+                                    n_real=TEXT_LEN))
+        targs = (mpatt.T.contiguous(), mplen, mstack.text_packed,
+                 mstack.sa, mstack.pad_cnt, ops.tier_meta(mstack))
+        e_ts = max_abs_err(torch, TS.tier_scan_cuda(*targs),
+                           TS.tier_scan_plain(*targs))
+        lanes = torch.from_numpy(base).to(dev).to(torch.int64).reshape(
+            -1, 16)
+        e_pk = max_abs_err(torch, [codec.words_i64(mpacked)],
+                           [codec.words_i64(ref.pack2bit_ref(lanes.T))])
+        mesh_err = {"bounded_search": e_bs, "pattern_compare": e_pc,
+                    "tier_scan": e_ts, "pack2bit": e_pk}
+        print(f"[mesh:kernels] " + " ".join(
+            f"{k}_max_abs_err={v}" for k, v in mesh_err.items())
+            + f" tablets={len(mtablets)} owner_compare_rows="
+            f"{int(cargs[0].shape[0])}", flush=True)
+        del mtablets, mstack, lanes
+    finally:
+        os.environ.pop(HOST_DEVICES_ENV, None)
+        shutil.rmtree(mroot, ignore_errors=True)
+    mesh_secs["total"] = time.perf_counter() - mesh_t0
+    print(f"[mesh] " + " ".join(f"{k}_seconds={v:.4f}"
+                                for k, v in mesh_secs.items())
+          + f" card=\"{smi}\"", flush=True)
+
     by_path = {"serve": launches, "compact": compact_launches,
                "persist": persist_launches, "long": long_launches,
                "client": client_launches, "serve_cli": serve_launches,
-               "staged": staged_launches, "plane": plane_launches}
+               "staged": staged_launches, "plane": plane_launches,
+               "mesh": mesh_launches}
     Q.query = search
     print(f"[locate] {json.dumps({p: located[i].tolist() for i, p in enumerate(loc_pats)})}",
           flush=True)
@@ -1751,10 +2074,16 @@ def main() -> int:
     for r, (counted, kernel, reps) in zip(rows, timed):
         long = wide.get(r["name"], {})
         r["max_abs_err"] = max(r["max_abs_err"],
-                               long.get("wide_max_abs_err", 0))
-        r.update(long, launches_by_path={k: v[counted]
-                                         for k, v in by_path.items()},
-                 ms_after_phases=cuda_ms(torch, kernel, reps))
+                               long.get("wide_max_abs_err", 0),
+                               mesh_err.get(r["name"], 0))
+        # pattern_compare's launches: fused epilogues plus the standalone
+        # compare (the mesh's routed owner choice; 0 on the other paths)
+        r.update(long, launches_by_path={
+            k: v[counted] + (v["pattern_compare"]
+                             if r["name"] == "pattern_compare" else 0)
+            for k, v in by_path.items()},
+            mesh_max_abs_err=mesh_err.get(r["name"]),
+            ms_after_phases=cuda_ms(torch, kernel, reps))
         check(r["max_abs_err"] == 0,
               f"{r['name']} equals its plain version at every width")
     print(f"[after-phases] threads={threading.active_count()} " + " ".join(
@@ -1770,7 +2099,8 @@ def main() -> int:
     print("[kernels] " + " ".join(
         f"{r['name']}:launches={r['launches']},staged="
         f"{r['launches_by_path']['staged']},plane="
-        f"{r['launches_by_path']['plane']},match="
+        f"{r['launches_by_path']['plane']},mesh="
+        f"{r['launches_by_path']['mesh']},match="
         f"{str(r['max_abs_err'] == 0).lower()}" for r in rows), flush=True)
     print(f"[memory] peak_bytes="
           f"{max(peak_before_staged, torch.cuda.max_memory_allocated())}",

@@ -32,10 +32,16 @@ either package opens in the other.
 (``core.build_pipeline``) and streams the suffix array into the snapshot
 shard by shard.
 
-Not ported yet, and raising ``NotImplementedError`` when asked for:
-meshes (``mesh``, ``distributed_build``).  The routed
-mode's knobs ``capacity_factor`` and ``routed_min_batch`` are taken and
-kept as the reference keeps them; on one device nothing reads them.
+When more than one device is visible (``launch.mesh``: the cards of
+``cuda``, or ``REPRO_TORCH_HOST_DEVICES=N`` tablets placed round-robin
+over the table's device type) the table builds its suffix array by the
+distributed prefix doubling (``core.dsa``) and serves over a tablet mesh
+(broadcast and routed scans, ``core.planner``); ``capacity_factor`` and
+``routed_min_batch`` steer the routed path, and ``compact()`` rebuilds
+over the mesh when ``distributed_build`` (on a mesh by default).  As in
+the reference, no constructor takes a ``mesh``: a mesh planner goes in
+through :meth:`SuffixTable.from_store`.  Frozen tables serve from one
+device.
 """
 from __future__ import annotations
 
@@ -60,27 +66,18 @@ from repro_torch.core.build_pipeline import (BuildStats,
                                              chunk_rows_for_budget,
                                              device_sort_rows,
                                              in_memory_build_stats,
+                                             mesh_sort_rows,
                                              staged_suffix_array)
 from repro_torch.core.planner import ScanOutcome, ScanPlanner, TopKCache
 from repro_torch.core.query import MatchResult
 from repro_torch.core.suffix_array import build_suffix_array
+from repro_torch.core.dsa import build_suffix_array_distributed
 from repro_torch.core.tablet import TabletStore, store_from_arrays
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import mesh_axis_size
+from repro_torch.launch.mesh import AXIS, table_mesh
 from repro_torch.serving.metrics import MetricsEmitter, table_record
 from repro_torch.serving.trace import Tracer
-
-# keyword arguments of repro's SuffixTable that need a mesh
-_UNPORTED = ("distributed_build", "mesh")
-
-
-def _check_unported(kw: dict) -> None:
-    for k in kw:
-        if k in _UNPORTED:
-            raise NotImplementedError(
-                f"SuffixTable({k}=...) is not ported to repro_torch yet "
-                f"(single-device tables only)")
-        raise TypeError(f"unexpected keyword argument {k!r}")
-
 
 def _as_batch(x, device: torch.device) -> torch.Tensor:
     """An encoded batch (numpy or torch) as a tensor on ``device``:
@@ -111,17 +108,24 @@ def _sync(device: torch.device) -> None:
 
 def _build_sa(codes: np.ndarray, dev: torch.device):
     """The base SA over ``codes`` on ``dev`` and the ``stats()["build"]``
-    record of its construction."""
+    record of its construction: distributed over the tablet mesh when
+    more than one device is visible (``launch.mesh.table_mesh``), on
+    ``dev`` otherwise."""
+    mesh = table_mesh(dev)
     _sync(dev)
     t0 = time.perf_counter()
-    sa = build_suffix_array(codec.as_tensor(codes, dev))
+    if mesh is not None:
+        sa_pad, pad = build_suffix_array_distributed(codes, mesh, AXIS)
+        sa = sa_pad[pad:].to(dev)
+    else:
+        sa = build_suffix_array(codec.as_tensor(codes, dev))
     _sync(dev)
     return sa, in_memory_build_stats(int(codes.shape[0]),
                                      time.perf_counter() - t0)
 
 
 class SuffixTable:
-    """A named, versioned, mutable suffix-array table on one device.
+    """A named, versioned, mutable suffix-array table.
 
     Construct through :meth:`create` / :meth:`open` (persistent) or
     :meth:`from_codes` / :meth:`from_store` (in memory)."""
@@ -135,19 +139,18 @@ class SuffixTable:
                  wal: Optional[bool] = None, group_commit_ms: float = 0.0,
                  fm_threshold: Optional[int] = None,
                  capacity_factor: float = 2.0, routed_min_batch: int = 64,
+                 distributed_build: Optional[bool] = None,
                  device: DeviceLike = None,
                  _store: Optional[TabletStore] = None,
                  _planner: Optional[ScanPlanner] = None,
-                 _fm: Optional[FMIndex] = None, **unported):
-        _check_unported(unported)
+                 _fm: Optional[FMIndex] = None):
         self.name = name
         self.root = root
         self.version = int(version)
         self.is_dna = bool(is_dna)
         self.max_query_len = int(max_query_len)
         self.keep_n = int(keep_n)
-        # the routed mode's knobs: kept and reported, read by no
-        # single-device path
+        # the routed mode's knobs (a mesh planner reads them)
         self.capacity_factor = float(capacity_factor)
         self.routed_min_batch = int(routed_min_batch)
         self.cache_size = int(cache_size)
@@ -160,19 +163,27 @@ class SuffixTable:
         self.tracer = Tracer()
         self._metrics: Optional[MetricsEmitter] = None
         self.planner: Optional[ScanPlanner] = None
-        if _store is not None:
+        if _store is not None:                       # adopted as it is
             self.device = _store.device
+            self.mesh = _planner.mesh if _planner is not None else None
             self.store = _store
             self.planner = _planner or ScanPlanner(
-                _store, cache_size=cache_size, tracer=self.tracer)
+                _store, cache_size=cache_size,
+                capacity_factor=capacity_factor,
+                routed_min_batch=routed_min_batch, tracer=self.tracer)
             if _planner is not None:
                 self.tracer = _planner.tracer
         elif _fm is not None:                        # open(): frozen tier
             self.device = _fm.device
+            self.mesh = None
             self._attach_frozen(_fm)
         else:
             self.device = resolve_device(device)
+            self.mesh = table_mesh(self.device)
             self._attach(self._codes, sa_real)
+        self._distributed_build = (self.mesh is not None
+                                   if distributed_build is None
+                                   else bool(distributed_build))
         self.memtable = Memtable(self._codes, is_dna=self.is_dna,
                                  max_query_len=self.max_query_len,
                                  device=self.device)
@@ -205,9 +216,9 @@ class SuffixTable:
                    max_query_len: int = 128, device: DeviceLike = None,
                    **kw) -> "SuffixTable":
         """In-memory table built over ``codes`` now, on ``device``
-        (``cuda`` when None): the SA by prefix doubling there, the text
+        (``cuda`` when None): the SA by prefix doubling there (over the
+        tablet mesh when more than one device is visible), the text
         packed there by the pack2bit kernel."""
-        _check_unported({k: v for k, v in kw.items() if k in _UNPORTED})
         dev = resolve_device(device)
         codes, is_dna = _as_codes(codes, is_dna)
         sa, build = _build_sa(codes, dev)
@@ -257,7 +268,6 @@ class SuffixTable:
         mid-shard-stream) leaves a registered table without a published
         snapshot, which ``Catalog.reconcile`` and a later ``create`` of
         the name remove instead of refusing."""
-        _check_unported({k: v for k, v in kw.items() if k in _UNPORTED})
         _check_name(name)
         root = root or default_root()
         catalog = Catalog(root)
@@ -313,9 +323,13 @@ class SuffixTable:
                       else chunk_rows_for_budget(max_device_bytes))
         if shard_rows is None:
             shard_rows = chunk_rows
-        # a budget too small for one device sort raises before the
-        # catalog names the table
-        device_sort_rows(chunk_rows, max_device_bytes, device)
+        # a budget too small for one device sort (on a mesh, one sort on
+        # every tablet of a card) raises before the catalog names the table
+        mesh = table_mesh(device)
+        if mesh is None:
+            device_sort_rows(chunk_rows, max_device_bytes, device)
+        else:
+            mesh_sort_rows(chunk_rows, max_device_bytes, mesh)
         mgr = CheckpointManager(os.path.join(root, name),
                                 keep_n=int(kw.get("keep_n", 3)))
         catalog.register(name, {"is_dna": is_dna,
@@ -325,6 +339,7 @@ class SuffixTable:
             _, stats = staged_suffix_array(
                 codes, chunk_rows=chunk_rows,
                 max_device_bytes=max_device_bytes, spill_dir=spill_dir,
+                mesh=mesh, axis_name=AXIS,
                 shard_rows=shard_rows, device=device,
                 emit_shard=lambda i, blk: stage.add_shard("sa_real", i,
                                                           blk))
@@ -400,16 +415,19 @@ class SuffixTable:
         return table
 
     def _attach(self, codes: np.ndarray, sa_real) -> None:
-        """(Re)build the base store on the table's device.  An existing
-        planner is re-bound in place, so references to it keep serving
-        the new text and its stats survive."""
+        """(Re)build the base store on the table's device, padded for the
+        table's tablet count.  An existing planner is re-bound in place,
+        so references to it keep serving the new text and its stats
+        survive."""
         self.store = store_from_arrays(
             codes, sa_real, is_dna=self.is_dna,
-            max_query_len=self.max_query_len, device=self.device)
+            max_query_len=self.max_query_len,
+            num_tablets=mesh_axis_size(self.mesh), device=self.device)
         if self.planner is None:
-            self.planner = ScanPlanner(self.store,
-                                       cache_size=self.cache_size,
-                                       tracer=self.tracer)
+            self.planner = ScanPlanner(
+                self.store, mesh=self.mesh, cache_size=self.cache_size,
+                capacity_factor=self.capacity_factor,
+                routed_min_batch=self.routed_min_batch, tracer=self.tracer)
         else:
             self.planner.rebind(self.store)     # also drops any FM binding
         self.fm = None
@@ -528,21 +546,25 @@ class SuffixTable:
         """Swap the base onto ``fm``.  The store becomes metadata only
         (no text, an empty SA on the table's device, so ``store.device``
         still resolves); the host codes stay for the memtable's overlap
-        window."""
+        window.  Frozen tables serve single-replica: a mesh is
+        released."""
         if fm.n != self.n_base or fm.is_dna != self.is_dna:
             raise ValueError(
                 f"FM-index (n={fm.n}, is_dna={fm.is_dna}) does not match "
                 f"the table (n={self.n_base}, is_dna={self.is_dna})")
         self.fm = fm
+        self.mesh = None
         self.store = TabletStore(
             text_packed=None, text_codes=None,
             sa=torch.zeros((0,), dtype=torch.int32, device=self.device),
             n_real=self.n_base, n_pad=self.n_base, is_dna=self.is_dna,
             max_query_len=self.max_query_len)
         if self.planner is None:
-            self.planner = ScanPlanner(self.store,
-                                       cache_size=self.cache_size,
-                                       tracer=self.tracer, fm=fm)
+            self.planner = ScanPlanner(
+                self.store, cache_size=self.cache_size,
+                capacity_factor=self.capacity_factor,
+                routed_min_batch=self.routed_min_batch,
+                tracer=self.tracer, fm=fm)
         else:
             self.planner.rebind(self.store, fm=fm)
 
@@ -561,7 +583,9 @@ class SuffixTable:
         the base suffix array BY MERGING (``api.compaction``: prefix
         doubling over the dirty range, the ``bounded_search`` kernel's
         insertion search on CUDA), clear the delta tiers, bump and
-        persist the version.  A frozen table's SA is first rebuilt from
+        persist the version.  A table with a live mesh and
+        ``distributed_build`` rebuilds over the mesh instead (the merge
+        is single-device).  A frozen table's SA is first rebuilt from
         its index (LF walks), and the merged base is frozen again at the
         same sample rate.  No-op when there is nothing to fold.  Returns
         the version."""
@@ -570,16 +594,17 @@ class SuffixTable:
             return self.version
         combined = np.concatenate([self._codes, delta])
         was_frozen = self.fm is not None
-        if was_frozen:
-            fm_rate = self.fm.sample_rate
-            base_sa = self.fm.suffix_array()
+        fm_rate = self.fm.sample_rate if was_frozen else None
+        if self.mesh is not None and self._distributed_build:
+            sa_real, _stats = _build_sa(combined, self.device)
         else:
-            base_sa = self.store.sa[self.store.pad_count:]
-        sa_real = merge_delta_sa(combined, self.n_base, base_sa,
-                                 is_dna=self.is_dna,
-                                 max_query_len=self.max_query_len,
-                                 device=self.device)
-        del base_sa
+            base_sa = (self.fm.suffix_array() if was_frozen
+                       else self.store.sa[self.store.pad_count:])
+            sa_real = merge_delta_sa(combined, self.n_base, base_sa,
+                                     is_dna=self.is_dna,
+                                     max_query_len=self.max_query_len,
+                                     device=self.device)
+            del base_sa
         self._codes = combined
         self._attach(combined, sa_real)      # rebind bumps the planner
         self.runs = []                       # cache and drops any FM

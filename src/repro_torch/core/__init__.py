@@ -1,2 +1,3 @@
-"""repro_torch.core — codec, suffix-array build, tablet store, query and
-the scan planner, ported from ``repro.core`` (single device)."""
+"""repro_torch.core — codec, suffix-array build (single device and over
+a tablet mesh), tablet store, query and the scan planner, ported from
+``repro.core``."""

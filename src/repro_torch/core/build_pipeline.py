@@ -34,9 +34,15 @@ how many runs there are, and the suffix array stays bit-identical.  On
 the CPU, or without a budget, a sub-chunk is a whole chunk, so the runs,
 the merge's blocks and ``spill_bytes`` are the reference's.
 
-The reference's mesh path (one ``dsort`` sort per super-chunk of
-``p * chunk_rows`` rows) needs several devices and waits for ROADMAP
-queue 1, item 6.
+With a tablet mesh the reference's mesh path runs: each round sorts
+super-chunks of ``p * chunk_rows`` rows, one ``core.dsa.
+make_superchunk_sorter`` sort each (every tablet holds ``chunk_rows``
+rows), padded with ``INT32_MAX`` rows; each super-chunk is one run, and
+the merge's block size is the reference's, so ``stats()["build"]``
+matches it.  On CUDA under a budget the budget is a card's, and the
+single-controller sort keeps the working set of every tablet on a card
+alive at once (:data:`MESH_SORT_BYTES_PER_ROW` a tablet row, measured on
+the H100), so a tablet takes :func:`mesh_sort_rows` rows a super-chunk.
 """
 from __future__ import annotations
 
@@ -48,8 +54,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.dsa import make_superchunk_sorter
+from repro_torch.core.dsort import INT32_MAX as _I32_MAX
 from repro_torch.core.dsort import merge_sorted_runs
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import mesh_axis_size
 
 DEFAULT_CHUNK_ROWS = 1 << 16
 MIN_CHUNK_ROWS = 256
@@ -66,6 +75,16 @@ BYTES_PER_ROW = 24
 # gives the H100's numbers.
 SORT_BYTES_PER_ROW = 49
 SORT_FIXED_BYTES = 6 << 20
+# The same for one tablet row of a mesh super-chunk sort
+# (``dsa.make_superchunk_sorter``): the uploaded operands, the sample
+# sort's bucket buffers at twice the rows, its local sort and
+# re-balance, or the bitonic fallback's merge-splits, whichever holds
+# more), rounded up, and a margin a tablet for the caching allocator's
+# oversized blocks.  chip_smoke.py's [mesh-sort-footprint] measures the
+# rows' bytes on the card (8 tablets, random and tie-heavy keys); PERF.md
+# gives the H100's numbers.
+MESH_SORT_BYTES_PER_ROW = 100
+MESH_SORT_FIXED_BYTES = 2 << 20
 
 
 def chunk_rows_for_budget(max_device_bytes: Optional[int]) -> int:
@@ -89,6 +108,29 @@ def device_sort_rows(chunk_rows: int, max_device_bytes: Optional[int],
             f"max_device_bytes={max_device_bytes} cannot hold a device "
             f"sort of {MIN_CHUNK_ROWS} rows on CUDA (needs at least "
             f"{MIN_CHUNK_ROWS * SORT_BYTES_PER_ROW + SORT_FIXED_BYTES})")
+    return min(chunk_rows, fit)
+
+
+def mesh_sort_rows(chunk_rows: int, max_device_bytes: Optional[int],
+                   mesh) -> int:
+    """Rows a tablet takes in one super-chunk sort: ``chunk_rows`` on
+    the CPU or without a budget, as the reference sorts; on CUDA as many
+    as fit ``max_device_bytes`` on the card that holds the most tablets.
+    A budget that cannot hold ``MIN_CHUNK_ROWS`` rows a tablet raises
+    ValueError."""
+    devs = list(mesh.devices)
+    if devs[0].type != "cuda" or max_device_bytes is None:
+        return chunk_rows
+    k = max(devs.count(d) for d in devs)     # tablets sharing a card
+    per_tablet = int(max_device_bytes) // k - MESH_SORT_FIXED_BYTES
+    fit = per_tablet // MESH_SORT_BYTES_PER_ROW
+    if fit < MIN_CHUNK_ROWS:
+        need = k * (MIN_CHUNK_ROWS * MESH_SORT_BYTES_PER_ROW
+                    + MESH_SORT_FIXED_BYTES)
+        raise ValueError(
+            f"max_device_bytes={max_device_bytes} cannot hold a mesh sort "
+            f"of {MIN_CHUNK_ROWS} rows on each of the {k} tablets of a "
+            f"card (needs at least {need})")
     return min(chunk_rows, fit)
 
 
@@ -378,6 +420,8 @@ def staged_suffix_array(
     max_device_bytes: Optional[int] = None,
     spill_dir: Optional[str] = None,
     mesh=None,
+    axis_name: str = "tablets",
+    method: str = "sample",
     shard_rows: Optional[int] = None,
     emit_shard: Optional[Callable[[int, np.ndarray], None]] = None,
     num_steps: Optional[int] = None,
@@ -389,13 +433,9 @@ def staged_suffix_array(
     as ``emit_shard(shard_index, int32_block)`` calls of ``shard_rows``
     rows (last one partial) and ``sa`` is None; otherwise the full array
     is assembled and returned (numpy int32).  The chunk sorts run on
-    ``device`` (``cuda`` when None); everything else is host work.
-    ``mesh`` raises ``NotImplementedError``: the mesh sorts are not
-    ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "staged_suffix_array(mesh=...): the mesh super-chunk sort is "
-            "not ported to repro_torch yet (ROADMAP queue 1, item 6)")
+    ``device`` (``cuda`` when None), or with ``mesh`` as one ``method``
+    sort over the tablets per super-chunk of ``p`` times
+    :func:`mesh_sort_rows` rows; everything else is host work."""
     dev = resolve_device(device)
     codes = np.asarray(codes, dtype=np.int32)
     n = int(len(codes))
@@ -417,15 +457,37 @@ def staged_suffix_array(
             return None, stats
         return sa, stats
 
+    p = mesh_axis_size(mesh, axis_name) if mesh is not None else 1
     n_chunks = -(-n // chunk_rows)
-    sort_rows = device_sort_rows(chunk_rows, max_device_bytes, dev)
+    if p > 1:
+        # one mesh sort per super-chunk: each tablet holds chunk_rows
+        # (fewer on CUDA under a budget); the merge's blocks are the
+        # reference's
+        mesh_sort = make_superchunk_sorter(mesh, axis_name, method)
+        sort_rows = mesh_sort_rows(chunk_rows, max_device_bytes, mesh) * p
+        ref_rows = chunk_rows * p
+        block_rows = max(MIN_CHUNK_ROWS, ref_rows // -(-n // ref_rows))
+    else:
+        sort_rows = device_sort_rows(chunk_rows, max_device_bytes, dev)
+        block_rows = max(MIN_CHUNK_ROWS, chunk_rows // n_chunks)
     if num_steps is None:
         num_steps = max(1, int(np.ceil(np.log2(n))))
 
     store = SpillStore(spill_dir)
     stats = BuildStats(n_bases=n, n_chunks=n_chunks, chunk_rows=chunk_rows,
                        peak_device_bytes=chunk_rows * BYTES_PER_ROW)
-    block_rows = max(MIN_CHUNK_ROWS, chunk_rows // n_chunks)
+
+    def sort_run(first, second, lo):
+        """One sorted run of the rows ``lo, lo + 1, ...``: (key, idx)."""
+        if p == 1:
+            return _sort_chunk(_pack_keys(first, second, n), lo, dev)
+        real = len(first)
+        idx = np.arange(lo, lo + real, dtype=np.int32)
+        pad = np.full((sort_rows - real,), _I32_MAX, np.int32)
+        f_s, s_s, i_s = mesh_sort(np.concatenate([first, pad]),
+                                  np.concatenate([second, pad]),
+                                  np.concatenate([idx, pad]))
+        return _pack_keys(f_s[:real], s_s[:real], n), i_s[:real]
 
     try:
         k = 0                                      # round 0 = densify
@@ -440,9 +502,7 @@ def staged_suffix_array(
                     first = _read_rank_range(store, lo, hi, n, chunk_rows)
                     second = _read_rank_range(store, lo + k, hi + k, n,
                                               chunk_rows)
-                key, idx = _sort_chunk(_pack_keys(first, second, n), lo,
-                                       dev)
-                runs.append(store.put_run(r, key, idx))
+                runs.append(store.put_run(r, *sort_run(first, second, lo)))
 
             # flush threshold scales with the chunk so pending scatter
             # buffers stay a fraction of the device budget, not O(n)

@@ -1,15 +1,24 @@
-"""Scan planner — the single entry point for pattern lookups; the
-single-device part of ``repro.core.planner`` (``MODE_SINGLE`` and
-``MODE_FM``).
+"""Scan planner — the single entry point for pattern lookups; the port
+of ``repro.core.planner``.
 
-A live table runs every batch through ``query.query`` (the
-``bounded_search`` kernel on CUDA for packed DNA), and merged reads over
-delta tiers through ``kernels.ops.fused_single``.  A frozen table (an
-``api.fm.FMIndex`` bound with ``fm=``) plans ``MODE_FM``: its base reads
-run ``kernels.ops.fm_search`` (the ``fm_scan`` kernel on CUDA), and
-merged reads add ``kernels.ops.fused_tiers`` over the delta tiers.
-Broadcast and routed modes need a mesh, which is not ported yet: asking
-for them raises ``NotImplementedError``.
+A live table on one device runs every batch through ``query.query``
+(the ``bounded_search`` kernel on CUDA for packed DNA), and merged reads
+over delta tiers through ``kernels.ops.fused_single``.  A frozen table
+(an ``api.fm.FMIndex`` bound with ``fm=``) plans ``MODE_FM``: its base
+reads run ``kernels.ops.fm_search`` (the ``fm_scan`` kernel on CUDA).
+With a tablet mesh (``launch.mesh.TabletMesh``) a batch plans
+``MODE_ROUTED`` (DNA, at least ``routed_min_batch`` and p queries:
+``query.query_routed``, padded to a multiple of p) or
+``MODE_BROADCAST`` (``query.query_sharded``).  The routed path's
+sentinel counts (-1 dispatch overflow, -2 a match run over more than
+two tablets) and any found row without a rank are re-run through the
+exact mode (broadcast on a mesh) and counted in ``retried_overflow`` /
+``retried_saturated`` / ``retried_inexact_rank``, so callers always get
+exact counts.  Merged reads on a mesh or a frozen table run the base
+read, then every delta tier in one ``kernels.ops.fused_tiers`` scan,
+then the merge.  The reference pads a retry batch to a power-of-two
+bucket because it compiles per shape; the port runs eagerly and pads
+nothing (the answers and the ``retried_*`` counts are the same).
 
 On top of the exact scan the planner adds match enumeration
 (:meth:`ScanPlanner.locate`, positions in suffix-rank order from the SA
@@ -29,7 +38,8 @@ import torch
 from repro_torch.core import codec
 from repro_torch.core import query as Q
 from repro_torch.core.query import MatchResult
-from repro_torch.core.tablet import TabletStore
+from repro_torch.core.tablet import TabletStore, shard_store
+from repro_torch.distributed.sharding import mesh_axis_size
 from repro_torch.kernels import ops
 from repro_torch.kernels.tier_scan import merge_tier_results
 from repro_torch.serving.trace import Tracer
@@ -178,63 +188,133 @@ class ScanOutcome:
     positions: Optional[np.ndarray] = None
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               f"(single-device MODE_SINGLE / MODE_FM only)")
-
-
 class ScanPlanner:
-    """Plans, executes and caches pattern scans over a single-device
-    store, or over a frozen table's FM index when ``fm`` is bound.
-    ``mesh`` raises ``NotImplementedError``."""
+    """Plans, executes, retries and caches pattern scans over a store:
+    single device, a frozen table's FM index when ``fm`` is bound, or a
+    tablet mesh (``mesh``, over which ``store.n_pad`` must divide; a
+    frozen table drops it).  ``capacity_factor`` is the routed
+    dispatch's capacity (lower overflows hot tablets more often, which
+    the retry corrects); batches of at least ``routed_min_batch``
+    queries route, smaller ones broadcast."""
 
-    def __init__(self, store: TabletStore, *, cache_size: int = 4096,
+    def __init__(self, store: TabletStore, *, mesh=None,
+                 capacity_factor: float = 2.0,
+                 routed_min_batch: int = 64, cache_size: int = 4096,
                  max_pattern_len: Optional[int] = None,
-                 tracer: Optional[Tracer] = None, mesh=None, fm=None):
-        if mesh is not None:
-            raise _not_ported("a mesh (broadcast/routed scans)")
+                 tracer: Optional[Tracer] = None, fm=None):
         self.fm = fm
+        self.mesh = mesh if fm is None else None   # frozen: one replica
         self.store = store
+        self._check_mesh(store)
+        self.capacity_factor = float(capacity_factor)
+        self.routed_min_batch = int(routed_min_batch)
         self.cache_size = int(cache_size)
         self.max_pattern_len = int(max_pattern_len or store.max_query_len)
         self.stats = PlannerStats()
         self.tracer = tracer if tracer is not None else Tracer()
         self._cache = TopKCache(self.cache_size)
         self._sa_host: Optional[np.ndarray] = None
+        self._tablets: Optional[list] = None
+
+    def _check_mesh(self, store: TabletStore) -> None:
+        if self.mesh is not None and store.n_pad % self.num_tablets:
+            raise ValueError(
+                f"store.n_pad={store.n_pad} is not divisible by the "
+                f"mesh's {self.num_tablets} tablets — rebuild the store "
+                f"with num_tablets={self.num_tablets}")
 
     def rebind(self, store: TabletStore, *, fm=None) -> None:
-        """Swap the underlying store in place; the host SA copy is
-        dropped and the result cache generation-bumped.  ``fm`` moves the
-        planner onto (or off) the frozen tier: base reads then go
-        through the FM index instead of ``store.sa``."""
+        """Swap the underlying store in place; the host SA copy and the
+        tablet views are dropped and the result cache generation-bumped.
+        ``fm`` moves the planner onto (or off) the frozen tier: base reads
+        then go through the FM index instead of ``store.sa``, and a mesh
+        is dropped (frozen tables serve single-replica)."""
         self.fm = fm
+        if fm is not None:
+            self.mesh = None
+        self._check_mesh(store)
         self.store = store
         self.max_pattern_len = int(store.max_query_len)
         self._sa_host = None
+        self._tablets = None
         self._cache.bump()
 
     def invalidate_cache(self) -> int:
         return self._cache.bump()
 
+    @property
+    def num_tablets(self) -> int:
+        return mesh_axis_size(self.mesh)
+
     def plan(self, batch: int) -> ScanPlan:
         if self.fm is not None:
             return ScanPlan(MODE_FM, "frozen table: FM backward search",
                             batch)
-        return ScanPlan(MODE_SINGLE, "no mesh / single device", batch)
+        p = self.num_tablets
+        if p <= 1:
+            return ScanPlan(MODE_SINGLE, "no mesh / single device", batch)
+        if self.store.is_dna and batch >= max(self.routed_min_batch, p):
+            return ScanPlan(
+                MODE_ROUTED,
+                f"batch {batch} >= {self.routed_min_batch} on {p} tablets: "
+                f"route queries to owners", batch)
+        return ScanPlan(MODE_BROADCAST,
+                        f"small batch ({batch}) or non-DNA store: "
+                        f"broadcast to all {p} tablets", batch)
+
+    # -- executors ------------------------------------------------------------
+    def tablets(self) -> list:
+        """The per-tablet views of the store (``tablet.shard_store``),
+        built once per store."""
+        if self._tablets is None:
+            self._tablets = shard_store(self.store, self.mesh)
+        return self._tablets
+
+    def _execute(self, mode: str, patt, plen, first_pos: bool = True
+                 ) -> MatchResult:
+        if mode == MODE_FM:
+            return ops.fm_search(self.fm.arrays, patt, plen,
+                                 first_pos=first_pos)
+        if mode == MODE_SINGLE:
+            return Q.query(self.store, patt, plen)
+        if mode == MODE_BROADCAST:
+            return Q.query_sharded(self.tablets(), patt, plen)
+        # routed shards the batch: pad B to a multiple of p (plen 1)
+        p = self.num_tablets
+        B = int(patt.shape[0])
+        pad = (-B) % p
+        if pad:
+            patt = torch.cat([patt, torch.zeros(
+                (pad,) + tuple(patt.shape[1:]), dtype=patt.dtype,
+                device=patt.device)])
+            plen = torch.cat([plen, torch.ones(pad, dtype=plen.dtype,
+                                               device=plen.device)])
+        res = Q.query_routed(self.tablets(), patt, plen,
+                             capacity_factor=self.capacity_factor)
+        if pad:
+            res = MatchResult(found=res.found[:B], count=res.count[:B],
+                              first_rank=res.first_rank[:B],
+                              first_pos=res.first_pos[:B])
+        return res
+
+    def _exact_mode(self) -> str:
+        return MODE_SINGLE if self.num_tablets <= 1 else MODE_BROADCAST
 
     # -- encoded-batch API --------------------------------------------------
     def _check_mode(self, mode: Optional[str], B: int) -> str:
         chosen = mode or self.plan(B).mode
+        if chosen not in (MODE_SINGLE, MODE_BROADCAST, MODE_ROUTED,
+                          MODE_FM):
+            raise ValueError(f"unknown scan mode {chosen!r}")
         if chosen == MODE_FM and self.fm is None:
             raise ValueError("mode 'fm' requires a frozen table (planner "
                              "has no FM-index bound)")
         if chosen == MODE_SINGLE and self.fm is not None:
             raise ValueError("mode 'single' needs the live suffix array, "
                              "which a frozen table has dropped")
-        if chosen in (MODE_BROADCAST, MODE_ROUTED):
-            raise _not_ported(f"scan mode {chosen!r}")
-        if chosen not in (MODE_SINGLE, MODE_FM):
-            raise ValueError(f"unknown scan mode {chosen!r}")
+        if chosen in (MODE_BROADCAST, MODE_ROUTED) and self.mesh is None:
+            raise ValueError(
+                f"mode {chosen!r} requires a mesh; this planner has none")
         return chosen
 
     def _check_plen(self, plen, B: int) -> None:
@@ -253,13 +333,16 @@ class ScanPlanner:
         self.stats.mode_counts[chosen] += 1
 
     def scan_encoded(self, patt, plen, *, mode: Optional[str] = None,
-                     first_pos: bool = True) -> MatchResult:
+                     retry: bool = True, first_pos: bool = True
+                     ) -> MatchResult:
         """Exact scan of an encoded batch (packed uint32 DNA or int32
-        codes, on the store's device).  ``first_pos=False`` lets a frozen
-        read skip the LF walk of every lower-bound row and report
-        ``first_pos`` -1, for callers that derive text-order positions
-        themselves (a live read's ``first_pos`` is one gather and is
-        always filled)."""
+        codes, on the store's device), through :meth:`plan`'s mode or
+        ``mode``.  A routed batch's negative sentinel counts (and any
+        found row without a rank) are re-run through the exact mode;
+        ``retry=False`` returns the raw sentinels (benchmarks, tests).
+        ``first_pos=False`` lets a frozen read skip the LF walk of every
+        lower-bound row and report ``first_pos`` -1, for callers that
+        derive text-order positions themselves."""
         B = int(patt.shape[0])
         chosen = self._check_mode(mode, B)
         self._check_plen(plen, B)
@@ -270,21 +353,39 @@ class ScanPlanner:
             return MatchResult(found=z.to(torch.bool), count=z,
                                first_rank=z, first_pos=z)
         with self.tracer.span("dispatch_" + chosen):
-            if chosen == MODE_FM:
-                return ops.fm_search(self.fm.arrays, patt, plen,
-                                     first_pos=first_pos)
-            return Q.query(self.store, patt, plen)
+            res = self._execute(chosen, patt, plen, first_pos)
+        if chosen != MODE_ROUTED or not retry:
+            return res
+        count = res.count.cpu().numpy()
+        # re-run negative sentinels, and any row claiming a match without
+        # a usable rank (locate's SA-slice gather needs one)
+        rank_bad = (count > 0) & (res.first_rank.cpu().numpy() < 0)
+        bad = np.flatnonzero((count < 0) | rank_bad)
+        if bad.size == 0:
+            return res
+        self.stats.retried_overflow += int((count[bad] == -1).sum())
+        self.stats.retried_saturated += int((count[bad] == -2).sum())
+        self.stats.retried_inexact_rank += int(rank_bad.sum())
+        at = torch.from_numpy(bad).to(patt.device)
+        sub = self._execute(self._exact_mode(), Q.take_rows(patt, at),
+                            plen[at])
+        fields = {}
+        for f in ("found", "count", "first_rank", "first_pos"):
+            full = getattr(res, f).clone()
+            full[at] = getattr(sub, f).to(full.dtype)
+            fields[f] = full
+        return MatchResult(**fields)
 
     def scan_tiers(self, tierset, patt, plen, *, mode: Optional[str] = None,
-                   first_pos: bool = True
+                   retry: bool = True, first_pos: bool = True
                    ) -> tuple[MatchResult, Optional[TierScanResult]]:
         """Merged read over base + every delta tier of ``tierset`` (an
         ``api.runs.TierSet`` or None): the MERGED MatchResult plus the
         per-tier :class:`TierScanResult` (None on the base-only path).
-        ``first_pos`` as in :meth:`scan_encoded`."""
+        ``retry`` and ``first_pos`` as in :meth:`scan_encoded`."""
         B = int(patt.shape[0])
         if tierset is None or tierset.num_tiers == 0 or B == 0:
-            res = self.scan_encoded(patt, plen, mode=mode,
+            res = self.scan_encoded(patt, plen, mode=mode, retry=retry,
                                     first_pos=first_pos)
             self.stats.base_only_batches += 1
             return res, None
@@ -298,9 +399,10 @@ class ScanPlanner:
                 merged, _base, tiers = ops.fused_single(
                     self.store, tierset.stack, patt, plen)
         else:
-            # frozen base: the FM read (scan_encoded does its accounting),
-            # then every delta tier in one scan, then the merge
-            base = self.scan_encoded(patt, plen, mode=chosen,
+            # a frozen or mesh base keeps its own dispatch (scan_encoded
+            # does its accounting and the routed retries), then every
+            # delta tier in one scan, then the merge
+            base = self.scan_encoded(patt, plen, mode=chosen, retry=retry,
                                      first_pos=first_pos)
             with self.tracer.span("dispatch_fused"):
                 tiers = ops.fused_tiers(tierset.stack, patt, plen)

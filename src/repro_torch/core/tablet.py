@@ -6,7 +6,12 @@ sorted suffix array.  Pad rows (positions ``n_real .. n_pad-1``) sort
 first and are inert for every query.  Text positions stay below
 ``2**30``: ``BIG = 2**30`` is the "no match" sentinel downstream.
 
-Single device only: a mesh raises ``NotImplementedError``.
+Over a tablet mesh (``launch.mesh.TabletMesh``) the sorted rows are
+range-partitioned into contiguous tablets of ``m = n_pad / p`` rows, one
+per mesh device (the split keys are implicit: tablet d owns sorted rows
+``[d*m, (d+1)*m)``); :func:`shard_store` gives each tablet its view and
+:func:`build_tablet_store` with ``mesh`` builds the suffix array by the
+distributed prefix doubling of ``core.dsa``.
 """
 from __future__ import annotations
 
@@ -42,6 +47,32 @@ class TabletStore:
     @property
     def device(self) -> torch.device:
         return self.sa.device
+
+    def tablet_rows(self, num_tablets: int) -> int:
+        if self.n_pad % num_tablets:
+            raise ValueError(f"n_pad={self.n_pad} is not divisible by "
+                             f"{num_tablets} tablets")
+        return self.n_pad // num_tablets
+
+
+def shard_store(store: TabletStore, mesh) -> list:
+    """Per-tablet views of ``store`` over ``mesh``: view d's ``sa`` is
+    tablet d's m sorted rows on its device; text, ``n_real`` and
+    ``n_pad`` are the whole store's (the text replicated, one copy per
+    distinct device; on the store's own device nothing is copied)."""
+    p = mesh.size
+    m = store.tablet_rows(p)
+    texts: dict = {}
+    views = []
+    for d, dev in enumerate(mesh.devices):
+        if dev not in texts:
+            texts[dev] = tuple(None if t is None else t.to(dev)
+                               for t in (store.text_packed,
+                                         store.text_codes))
+        views.append(dataclasses.replace(
+            store, text_packed=texts[dev][0], text_codes=texts[dev][1],
+            sa=store.sa[d * m:(d + 1) * m].to(dev)))
+    return views
 
 
 @dataclasses.dataclass(frozen=True)
@@ -235,16 +266,26 @@ def store_from_numpy(fields: dict, device: DeviceLike = None
 def build_tablet_store(codes, *, is_dna: bool | None = None,
                        max_query_len: int = 128, num_tablets: int = 1,
                        min_rows: int = 0, mesh=None,
+                       axis_name: str | None = None,
+                       method: str = "bitonic",
                        device: DeviceLike = None) -> TabletStore:
-    """Build the store on one device (``cuda`` unless ``device`` says
-    otherwise): suffix array by prefix doubling, text packed there."""
-    if mesh is not None:
-        raise NotImplementedError("repro_torch builds on a single device; "
-                                  "meshes are not ported yet")
-    dev = resolve_device(device)
+    """Build the store: the suffix array by prefix doubling on one
+    device (``cuda`` unless ``device`` says otherwise), or with ``mesh``
+    by the distributed builder (``core.dsa``, ``method`` its sort) with
+    the store on ``device`` (the first tablet's when None).  The text is
+    packed on the store's device."""
     codes = np.asarray(codes)
     if is_dna is None:
         is_dna = codes.size > 0 and codes.max() < 4
+    if mesh is not None:
+        from repro_torch.core.dsa import build_suffix_array_distributed
+        dev = mesh.devices[0] if device is None else resolve_device(device)
+        sa, _pad = build_suffix_array_distributed(codes, mesh, axis_name,
+                                                  method=method)
+        return _finalize_store(codec.as_tensor(codes, dev), sa.to(dev),
+                               int(sa.shape[0]), is_dna=bool(is_dna),
+                               max_query_len=max_query_len)
+    dev = resolve_device(device)
     c = codec.as_tensor(codes, dev)
     sa_real = build_suffix_array(c)
     return store_from_arrays(c, sa_real, is_dna=bool(is_dna),

@@ -29,8 +29,11 @@ demo and serves it from N tablet worker processes (x
 ``--plane-replicas``), answering the same typed queries through the
 router (``[plane ]``).
 
-Not carried over from the reference: ``--tuned`` and ``--host-devices``
-(they set XLA/TF environment only).
+``--host-devices N`` serves over N tablets (``REPRO_TORCH_HOST_DEVICES``,
+set before any table resolves its mesh; ``launch.mesh``): N x ``cpu``
+with ``--device cpu``, N tablets round-robin over the cards on
+``cuda``.  Not carried over from the reference: ``--tuned`` (it sets
+TF/XLA environment only).
 """
 from __future__ import annotations
 
@@ -151,6 +154,11 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="device the tables build and search on "
                          "(cpu: the kernels' plain versions)")
+    ap.add_argument("--host-devices", type=int, default=None,
+                    help="serve over this many tablets of the table's "
+                         "device type (sets REPRO_TORCH_HOST_DEVICES "
+                         "before any table resolves its mesh; a CPU-only "
+                         "box then runs the mesh scan paths for real)")
     ap.add_argument("--dump-stats", action="store_true",
                     help="print the /varz aggregation of the table's "
                          "metrics.jsonl serving feed and exit (no torch "
@@ -168,14 +176,19 @@ def main(argv=None):
     if args.dump_stats:
         return _dump_stats(args)
 
+    if args.host_devices is not None:
+        from repro_torch.launch.mesh import HOST_DEVICES_ENV
+        os.environ[HOST_DEVICES_ENV] = str(args.host_devices)
+        print(f"[tune  ] {HOST_DEVICES_ENV}={args.host_devices}")
+
     import numpy as np
-    import torch
 
     from repro_torch.api import Database, Query, SuffixTable
     from repro_torch.core.codec import decode_dna, random_dna
+    from repro_torch.launch.mesh import visible_devices
     from repro_torch.serving import HedgedScanService
 
-    n_dev = torch.cuda.device_count()
+    n_dev = len(visible_devices(args.device))
     lsm = {"memtable_limit": args.memtable_limit, "max_runs": args.max_runs,
            "fm_threshold": args.fm_threshold}
     # durability knobs only make sense with a root (in-memory tables have

@@ -25,6 +25,7 @@ from repro_torch.core import codec as C  # noqa: E402
 from repro_torch.core.dsort import merge_sorted_runs  # noqa: E402
 from repro_torch.core.suffix_array import (  # noqa: E402
     build_suffix_array, build_suffix_array_staged)
+from repro_torch.launch.mesh import make_tablet_mesh  # noqa: E402
 
 CPU = "cpu"
 TIMING = ("elapsed_s", "bases_per_s")
@@ -214,12 +215,68 @@ def test_sub_chunk_runs_keep_the_sa(monkeypatch):
             jst.rounds, jst.n_chunks, jst.chunk_rows)
 
 
-def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        BP.staged_suffix_array(C.random_dna(100), mesh=object(),
-                               device=CPU)
-    with pytest.raises(NotImplementedError):
-        SuffixTable.create("m", C.random_dna(100), root="unused",
+def test_mesh_sort_rows_budget_math():
+    """A tablet of a mesh sort takes the whole chunk on the CPU or
+    without a budget; on CUDA what fits the budget on the card holding
+    the most tablets (no card is needed to size it)."""
+    from repro_torch.launch.mesh import TabletMesh
+    cpu8 = make_tablet_mesh(8, device=CPU)
+    assert BP.mesh_sort_rows(4096, 1 << 20, cpu8) == 4096
+    one_card = TabletMesh(devices=(torch.device("cuda", 0),) * 8)
+    two_cards = TabletMesh(devices=tuple(torch.device("cuda", d % 2)
+                                         for d in range(8)))
+    assert BP.mesh_sort_rows(1 << 16, None, one_card) == 1 << 16
+    budget = 64 << 20
+    for mesh, k in ((one_card, 8), (two_cards, 4)):
+        rows = BP.mesh_sort_rows(1 << 30, budget, mesh)
+        assert k * (rows * BP.MESH_SORT_BYTES_PER_ROW
+                    + BP.MESH_SORT_FIXED_BYTES) <= budget
+        assert k * ((rows + 1) * BP.MESH_SORT_BYTES_PER_ROW
+                    + BP.MESH_SORT_FIXED_BYTES) > budget
+        assert BP.mesh_sort_rows(300, budget, mesh) == 300
+        least = k * (BP.MIN_CHUNK_ROWS * BP.MESH_SORT_BYTES_PER_ROW
+                     + BP.MESH_SORT_FIXED_BYTES)
+        assert BP.mesh_sort_rows(1 << 16, least, mesh) == BP.MIN_CHUNK_ROWS
+        with pytest.raises(ValueError, match="max_device_bytes"):
+            BP.mesh_sort_rows(1 << 16, least - 1, mesh)
+    assert BP.mesh_sort_rows(1 << 30, budget, two_cards) > \
+        BP.mesh_sort_rows(1 << 30, budget, one_card)
+
+
+def test_mesh_sub_chunk_sorts_keep_the_sa(monkeypatch):
+    """Super-chunks of fewer rows a tablet than ``chunk_rows`` (what a
+    CUDA budget gives on a mesh) merge to the reference's SA, rounds and
+    chunks."""
+    codes = C.random_dna(5000, seed=12)
+    jsa, jst = j_staged(codes, chunk_rows=512)
+    mesh = make_tablet_mesh(8, device=CPU)
+    for rows in (300, 256):
+        monkeypatch.setattr(BP, "mesh_sort_rows",
+                            lambda c, b, m, _r=rows: _r)
+        sa, st = BP.staged_suffix_array(codes, chunk_rows=512, mesh=mesh,
+                                        device=CPU)
+        assert np.array_equal(sa, jsa), rows
+        assert (st.rounds, st.n_chunks, st.chunk_rows) == (
+            jst.rounds, jst.n_chunks, jst.chunk_rows)
+
+
+def test_mesh_raises(tmp_path):
+    """The staged build's mesh path (one ``make_superchunk_sorter`` sort
+    per super-chunk of 8 x 256 rows) gives the reference's SA, rounds and
+    chunks (the reference's own 8-device run is held in
+    ``tests/test_torch_distributed.py``); constructors take no mesh."""
+    codes = C.random_dna(3000, seed=11)
+    jsa, jst = j_staged(codes, chunk_rows=256)
+    mesh = make_tablet_mesh(8, device=CPU)
+    for method in ("sample", "bitonic"):
+        sa, st = BP.staged_suffix_array(codes, chunk_rows=256, mesh=mesh,
+                                        method=method, device=CPU)
+        assert np.array_equal(sa, jsa) and np.array_equal(sa, _ref(codes))
+        assert (st.rounds, st.n_chunks, st.chunk_rows,
+                st.peak_device_bytes) == (jst.rounds, jst.n_chunks,
+                                          jst.chunk_rows, 256 * 24)
+    with pytest.raises(TypeError):
+        SuffixTable.create("m", C.random_dna(100), root=str(tmp_path),
                            staged=True, mesh=object(), device=CPU)
 
 

@@ -655,3 +655,123 @@ def test_staged_create_without_budget_sorts_whole_chunks(
         SuffixTable.create("tiny", codes, root=root, max_device_bytes=100_000,
                            device=cuda)
     assert "tiny" not in Catalog(root)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["bitonic", "sample"])
+def test_mesh_on_the_card_matches_the_cpu_mesh(cuda, method, monkeypatch):
+    """4 tablets on ``cuda:0`` (the host-device count on a one-card
+    machine) against 4 on the CPU: the distributed SA, broadcast and
+    routed answers with their retries, merged reads, and the launches
+    the card's path makes."""
+    from repro_torch.api import SuffixTable
+    from repro_torch.core import dsa
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import HOST_DEVICES_ENV, make_tablet_mesh
+    codes = C.random_dna(20_000, seed=3)
+    sas = [dsa.build_suffix_array_distributed(
+        codes, make_tablet_mesh(4, device=d), method=method)
+        for d in (cuda, "cpu")]
+    assert sas[0][1] == sas[1][1]
+    assert torch.equal(sas[0][0].cpu(), sas[1][0])
+    monkeypatch.setenv(HOST_DEVICES_ENV, "4")
+    pats = Q.random_patterns(300, 1, 12, seed=8) + ["A"] * 40 + ["ACGT"]
+    outs = []
+    for dev in (cuda, "cpu"):
+        t = SuffixTable.from_codes(codes, is_dna=True, device=dev,
+                                   capacity_factor=0.5,
+                                   routed_min_batch=64, memtable_limit=600)
+        assert t.mesh.size == 4
+        assert {d.type for d in t.mesh.devices} == {torch.device(dev).type}
+        _build.reset_launches()
+        res = [t.scan(pats, top_k=3), t.scan(pats[:20], top_k=2)]
+        t.append(C.random_dna(900, seed=4))
+        t.clear_cache()
+        res.append(t.scan(pats, top_k=3))
+        outs.append((res, dict(_build.LAUNCHES),
+                     t.stats()["planner"]))
+    (gpu, launches, st), (cpu, _, cst) = outs
+    for a, b in zip(gpu, cpu):
+        for f in ("count", "first_pos", "positions"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    assert st["mode_counts"] == cst["mode_counts"]
+    assert st["retried_overflow"] == cst["retried_overflow"] > 0
+    assert launches["bounded_search"] > 0
+    assert launches["pattern_compare"] > 0 and launches["tier_scan"] > 0
+
+
+@pytest.mark.cuda
+def test_staged_mesh_build_on_the_card_within_budget(cuda, tmp_path,
+                                                     monkeypatch):
+    """8 tablets on ``cuda:0``: the staged mesh build's SA equals the
+    in-memory build, the card's measured peak over the build stays within
+    ``max_device_bytes`` (the budget of the card all 8 share), and a
+    budget too small for a sort on every tablet raises before the catalog
+    names the table."""
+    from repro_torch.api import SuffixTable
+    from repro_torch.api.catalog import Catalog
+    from repro_torch.core import build_pipeline as BP
+    from repro_torch.core.suffix_array import build_suffix_array
+    from repro_torch.launch.mesh import HOST_DEVICES_ENV, make_tablet_mesh
+    codes = C.random_dna(1 << 20, seed=19)
+    budget = 32 << 20
+    mem = build_suffix_array(torch.from_numpy(codes).to(cuda)).cpu()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sa, stats = BP.staged_suffix_array(
+        codes, max_device_bytes=budget, mesh=make_tablet_mesh(8, cuda),
+        device=cuda)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - resident
+    assert peak <= budget, (peak, budget)
+    assert np.array_equal(sa, mem.numpy())
+    assert stats.chunk_rows == budget // BP.BYTES_PER_ROW
+    monkeypatch.setenv(HOST_DEVICES_ENV, "8")
+    root = str(tmp_path / "root")
+    t = SuffixTable.create("m", codes[:100_000], root=root,
+                           max_device_bytes=budget, device=cuda)
+    assert t.mesh.size == 8 and t.stats()["build"]["mode"] == "staged"
+    assert torch.equal(t.store.sa[t.store.pad_count:].cpu(),
+                       build_suffix_array(torch.from_numpy(
+                           codes[:100_000])))
+    t.close()
+    least = 8 * (BP.MIN_CHUNK_ROWS * BP.MESH_SORT_BYTES_PER_ROW
+                 + BP.MESH_SORT_FIXED_BYTES)
+    with pytest.raises(ValueError, match="max_device_bytes"):
+        SuffixTable.create("tiny", codes, root=root,
+                           max_device_bytes=least - 1, device=cuda)
+    assert "tiny" not in Catalog(root)
+
+
+@pytest.mark.cuda
+def test_mesh_kernels_match_their_plain_twins(cuda):
+    """Per tablet: ``bounded_search_cuda`` over the tablet's rows equals
+    the plain binary search over them, and the routed owner choice's
+    tiled ``pattern_compare_cuda`` equals ``ref.pattern_compare_ref``."""
+    from repro_torch.core.tablet import build_tablet_store, shard_store
+    from repro_torch.kernels.pattern_scan import (bounded_search_cuda,
+                                                  pattern_compare_cuda)
+    from repro_torch.launch.mesh import make_tablet_mesh
+    mesh = make_tablet_mesh(8, device=cuda)
+    store = build_tablet_store(C.random_dna(30_000, seed=6),
+                               num_tablets=8, device=cuda)
+    tablets = shard_store(store, mesh)
+    _, pp, pl = Q.encode_patterns(Q.random_patterns(256, 1, 30, seed=2),
+                                  32, device=cuda)
+    split = torch.stack([t.sa[0] for t in tablets])
+    for t in tablets:
+        lb, ub = bounded_search_cuda(t.sa, t.text_packed, t.n_real, pp, pl,
+                                     int(t.sa.shape[0]))
+        plb, pub = Q.search_bounds_plain(t, pp, pl)
+        assert torch.equal(lb, plb) and torch.equal(ub, pub)
+    win = C.extract_window(store.text_packed, split, 2).repeat(256, 1)
+    args = (win, pp.repeat_interleave(8, 0), pl.repeat_interleave(8),
+            split.repeat(256))
+    got = pattern_compare_cuda(*args, n_real=store.n_real)
+    want = ref.pattern_compare_ref(args[0].T, args[1].T, *args[2:],
+                                   n_real=store.n_real)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    a = Q.owner_lt_count(tablets[0], split, pp, pl)
+    assert torch.equal(a, want[0].view(256, 8).sum(1, dtype=torch.int32))

@@ -365,8 +365,10 @@ def test_frozen_planner_modes_and_unported_persistence(tmp_path):
                                   device=CPU)
     with pytest.raises(ValueError, match="frozen"):
         live.planner.scan_encoded(patt, plen, mode=MODE_FM)
+    # frozen tables serve single-replica: the planner has no mesh
+    assert pt.planner.mesh is None and pt.mesh is None
     for mode in ("broadcast", "routed"):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="requires a mesh"):
             pt.planner.scan_encoded(patt, plen, mode=mode)
     with pytest.raises(ValueError, match="unknown"):
         pt.planner.scan_encoded(patt, plen, mode="nope")

@@ -39,6 +39,11 @@ def _imported_names(path):
 def test_every_module_imports_with_jax_blocked():
     mods = _modules()
     assert "repro_torch.api.table" in mods and len(mods) >= 15
+    for m in ("repro_torch.core.dsa", "repro_torch.core.dsort",
+              "repro_torch.distributed.collectives",
+              "repro_torch.distributed.sharding",
+              "repro_torch.launch.mesh"):
+        assert m in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"

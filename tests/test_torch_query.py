@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch")
 from repro.core import planner as JP, query as JQ, tablet as JT  # noqa: E402
 from repro_torch.core import codec as C, planner as P  # noqa: E402
 from repro_torch.core import query as Q, tablet as T  # noqa: E402
+from repro_torch.launch.mesh import make_tablet_mesh  # noqa: E402
 
 CPU = "cpu"
 FIELDS = ("found", "count", "first_rank", "first_pos")
@@ -153,9 +154,11 @@ def test_planner_scan_and_locate_match_reference():
     assert plan.stats.cache_hits == jplan.stats.cache_hits
     assert plan.plan(512).mode == P.MODE_SINGLE
     patt, plen = plan.encode(pats[:3])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="requires a mesh"):
         plan.scan_encoded(patt, plen, mode=P.MODE_ROUTED)
     with pytest.raises(ValueError):
         plan.encode(["A" * 33])
-    with pytest.raises(NotImplementedError):
-        P.ScanPlanner(plan.store, mesh=object())
+    # a mesh the store's rows do not divide over is refused, as in the
+    # reference (rebuild with num_tablets=p)
+    with pytest.raises(ValueError, match="not divisible"):
+        P.ScanPlanner(plan.store, mesh=make_tablet_mesh(3, device=CPU))

@@ -182,8 +182,34 @@ def test_serve_rejects_what_is_not_ported(capsys):
     with pytest.raises(SystemExit):
         serve.main(["--queries", "not-a-number"])
     with pytest.raises(SystemExit):                # XLA-only, not carried
-        serve.main(TINY + CPU + ["--host-devices", "2"])
+        serve.main(TINY + CPU + ["--tuned"])
     # the plane needs a persisted table: without --root it is skipped
     out = _run(serve.main, TINY + CPU + ["--tablets", "2"], capsys)
     assert "[clamp ] --tablets needs --root" in out
     assert "[plane ]" not in out
+
+
+def test_serve_host_devices_lines_match_reference():
+    """``--host-devices 2`` serves over a 2-tablet mesh (on the CPU with
+    ``--device cpu``), from a fresh interpreter as the reference's flag
+    needs one; the result lines and ``(2 device(s))`` equal the
+    reference's run with 2 XLA host devices."""
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    env.pop("XLA_FLAGS", None)
+    env.pop("REPRO_TORCH_HOST_DEVICES", None)
+    outs = {}
+    for mod, extra in (("repro_torch.launch.serve", CPU),
+                       ("repro.launch.serve", [])):
+        proc = subprocess.run(
+            [sys.executable, "-m", mod, *TINY, *extra, "--host-devices",
+             "2"], env=env, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        outs[mod] = proc.stdout
+    out, want = outs["repro_torch.launch.serve"], outs["repro.launch.serve"]
+    assert "[tune  ] REPRO_TORCH_HOST_DEVICES=2" in out
+    assert "(2 device(s))" in out and "(2 device(s))" in want
+    assert len(_lines(out)) == 9 and _lines(out) == _lines(want)
+    plan = next(ln for ln in out.splitlines() if ln.startswith("[plan  ]"))
+    assert "'broadcast': 0" not in plan and "retried=" in plan

@@ -94,9 +94,14 @@ def test_stats_and_unported_options(tmp_path):
     assert "dispatch" in s["latency"] and "dispatch_fused" in s["latency"]
     assert s["build"]["rounds"] == 10 and s["build"]["chunk_rows"] == 280
     assert s["planner"]["pad_slots"] == 0
-    for kw in ({"mesh": object()}, {"distributed_build": True}):
-        with pytest.raises(NotImplementedError):
-            SuffixTable.from_codes("ACGT" * 8, device=CPU, **kw)
+    # the reference's constructors take no mesh (a mesh planner goes in
+    # through from_store); distributed_build is a real keyword
+    with pytest.raises(TypeError):
+        SuffixTable.from_codes("ACGT" * 8, device=CPU, mesh=object())
+    db = SuffixTable.from_codes("ACGT" * 8, device=CPU,
+                                distributed_build=True)
+    assert db._distributed_build and db.mesh is None
+    assert db.count(["ACG"])[0] == 8
     # the routed mode's knobs are kept, as the reference keeps them
     t = SuffixTable.from_codes("ACGT" * 8, device=CPU, capacity_factor=1.5,
                                routed_min_batch=8)
