@@ -124,9 +124,36 @@ through the public entry points at chromosome scale:
                  owner choice's ``pattern_compare``, ``tier_scan``,
                  ``pack2bit``) against its plain version on the phase's
                  inputs;
-19. ``[kernels]`` every kernel's launches on each of the nine paths
+19. ``[dedup]``  corpus dedup and contamination on the card: a 2**26-
+                 token corpus (16,384 documents of 4,096 tokens of a
+                 151,936 vocabulary, 1 in 20 a planted copy of another)
+                 and ``dna_corpus(2**26, dup_fraction=0.1)``:
+                 ``duplicate_span_mask`` (min_len 50 and 32) must equal
+                 a numpy check keying every gram on every position,
+                 ``filter_duplicate_docs`` drop both members of every
+                 planted pair and nothing else, the DNA mask cover the
+                 planted span and its copy, and ``contamination_check``
+                 (4,096 windows, half cut from the corpus) equal the
+                 numpy gram set, on each store and on a table after an
+                 append; build, ``adjacent_lcp`` (seconds, device peak)
+                 and queries/s;
+20. ``[lm]``     qwen3-0.6b at full width in fp32 from seeded weights:
+                 ``greedy_generate`` of 8 prompts of 512 tokens, 64 new,
+                 ``max_len`` 1024, and the same through ``make_prefill_fn``
+                 / ``make_decode_fn``: equal tokens, every step's logits
+                 within 5e-3 of a full forward (``[lm:serve]``); 10
+                 AdamW steps on one 8 x 512 batch, the loss falling,
+                 microbatches 4 against 1 at lr 0, a save at step 5 and
+                 a resume equal to the uninterrupted run
+                 (``[lm:train]``); the six dense configs reduced, card
+                 against CPU within 5e-3 and decode against teacher
+                 forcing on the card (``[lm:archs]``);
+21. ``[kernels]`` every kernel's launches on each of the ten paths
                  (serving 1-8, compaction 9-10, persistence 11-12, long 13,
-                 client 14, serve 15, staged 16, plane 17, mesh 18; the
+                 client 14, serve 15, staged 16, plane 17, mesh 18,
+                 dedup 19; the [lm] path runs no kernel of its own: its
+                 matmuls and attention are plain torch, as the
+                 reference's are plain jnp; the
                  counts are set to 0 before each and read after it) and
                  its result held against its plain PyTorch version(s)
                  on inputs taken from that run, and timed, between
@@ -198,6 +225,30 @@ MESH_STAGED_LEN = 2**22     # [mesh:staged]: bases
 MESH_STAGED_BUDGET = 67_108_864  # [mesh:staged]: the card's bytes, 8 tablets
 MESH_TOO_SMALL = 6_400_000  # [mesh:staged]: a budget 8 tablets cannot share
 MESH_FOOTPRINT_ROWS = (2**14, 2**16)  # [mesh-sort-footprint]: a tablet's
+DEDUP_SEED = 0              # [dedup]: corpora and windows
+DEDUP_DOCS = 16_384         # [dedup]: documents of DEDUP_DOC_LEN tokens
+DEDUP_DOC_LEN = 4_096
+DEDUP_VOCAB = 151_936       # [dedup]: qwen3's vocabulary
+DEDUP_COPY_EVERY = 20       # [dedup]: 1 document in 20 is a planted copy
+DEDUP_MIN_LEN = 50          # [dedup]: tokens (Lee et al.'s 50-token spans)
+DEDUP_THRESHOLD = 0.5
+DEDUP_DNA_DUP = 0.1         # [dedup]: dna_corpus(dup_fraction=0.1)
+DEDUP_DNA_MIN_LEN = 32
+DEDUP_WINDOWS = 4_096       # [dedup]: contamination windows, half cut
+DEDUP_QUERY_LEN = 64
+LM_ARCH = "qwen3-0.6b"      # [lm]: full width, fp32, seeded weights
+LM_SEED = 0
+LM_PROMPTS = 8              # [lm:serve]: prompts x tokens, new tokens
+LM_PROMPT_LEN = 512
+LM_NEW = 64
+LM_MAX_LEN = 1024
+LM_TRAIN_BATCH = 8          # [lm:train]: one fixed batch
+LM_TRAIN_SEQ = 512
+LM_STEPS = 10
+LM_SAVE_AT = 5
+LM_LR = 3e-4
+LM_DENSE = ("qwen3-0.6b", "yi-6b", "qwen1.5-110b", "phi3-mini-3.8b",
+            "musicgen-medium", "internvl2-26b")
 
 # Published H100 SXM peaks (NVIDIA data sheet), used for the bounds.
 MEM_BYTES_PER_S = 3.35e12
@@ -500,14 +551,21 @@ def cli_line(out: str, prefix: str) -> str:
 def profile_batches(torch, table, patterns, tag: str) -> None:
     """Device busy share and top kernels over four batches (cache
     cleared), by torch.profiler; outside the counted main path."""
-    from torch.profiler import ProfilerActivity, profile
     table.clear_cache()
+    profile_fn(torch, lambda: [table.scan(patterns[i:i + BATCH])
+                               for i in range(0, 4 * BATCH, BATCH)],
+               tag, "batches=4")
+
+
+def profile_fn(torch, fn, tag: str, what: str) -> None:
+    """Device busy share of ``fn()`` (wall time to a synchronize) and its
+    top kernels by device time, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for i in range(0, 4 * BATCH, BATCH):
-                table.scan(patterns[i:i + BATCH])
+            fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         kernels = [e for e in prof.key_averages()
@@ -515,7 +573,7 @@ def profile_batches(torch, table, patterns, tag: str) -> None:
         dev_us = sum(getattr(e, "self_device_time_total", 0.0)
                      for e in kernels)
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-        print(f"[profile:{tag}] batches=4 wall_ms={wall_us / 1e3:.3f} "
+        print(f"[profile:{tag}] {what} wall_ms={wall_us / 1e3:.3f} "
               f"device_busy_ms={dev_us / 1e3:.3f} "
               f"device_busy_share={dev_us / wall_us:.4f}", flush=True)
         for e in top:
@@ -524,6 +582,469 @@ def profile_batches(torch, table, patterns, tag: str) -> None:
                   flush=True)
     except (RuntimeError, AttributeError) as exc:   # profiler unavailable
         print(f"[profile:{tag}] not measured: {exc}", flush=True)
+
+
+def gram_keys(np, codes, L: int, dna: bool):
+    """One uint64 key per ``L``-gram of ``codes`` (positions 0 .. n-L),
+    by doubling: key_2k(p) = key_k(p) * B**k + key_k(p + k).  For DNA
+    with L <= 32 the key is the gram itself (2 bits a base, exact); for
+    tokens a polynomial hash mod 2**64 (random corpus: a collision among
+    2**26 grams has probability ~2**-13, and can only add positions)."""
+    base = 4 if dna else 0x9E3779B97F4A7C15
+
+    def power(k):                               # base**k mod 2**64
+        return np.uint64(pow(base, k, 2**64))
+
+    n = len(codes) - L + 1
+    keys = {1: codes.astype(np.uint64)}
+    k = 1
+    while 2 * k <= L:
+        prev = keys[k]
+        keys[2 * k] = prev[:-k] * power(k) + prev[k:]
+        k *= 2
+    out, off = None, 0
+    for bit in sorted(keys, reverse=True):      # L = sum of powers of 2
+        if L - off >= bit:
+            part = keys[bit][off:off + n]
+            out = part.copy() if out is None else out * power(bit) + part
+            off += bit
+    return out
+
+
+def dup_mask_from_keys(np, keys, n: int):
+    """(mask over the n positions: its gram occurs at least twice, the
+    keys sorted) — the independent check of ``duplicate_span_mask``."""
+    order = np.argsort(keys)
+    sk = keys[order]
+    eq = sk[1:] == sk[:-1]
+    dup = np.zeros(len(sk), bool)
+    dup[1:] |= eq
+    dup[:-1] |= eq
+    mask = np.zeros(n, bool)
+    mask[order] = dup
+    return mask, sk
+
+
+def in_sorted(np, sk, keys):
+    """keys found in the sorted key array ``sk``."""
+    at = np.minimum(np.searchsorted(sk, keys), len(sk) - 1)
+    return sk[at] == keys
+
+
+def dedup_phase(np, torch, _build, check, dev, smi) -> tuple:
+    """The [dedup] path: a 2**26-token corpus with planted document
+    copies and a 2**26-base DNA corpus with a planted span, through
+    ``repro_torch.core.dedup`` and ``data.pipeline`` on the card, each
+    held against the numpy gram check.  Returns (launches, the kernels'
+    errors against their plain versions, seconds)."""
+    from repro_torch.api import SuffixTable
+    from repro_torch.core import codec
+    from repro_torch.core import dedup as D
+    from repro_torch.core.suffix_array import adjacent_lcp
+    from repro_torch.core.tablet import build_tablet_store
+    from repro_torch.data.pipeline import dna_corpus
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import tier_scan as TS
+    from repro_torch.kernels.pack2bit import pack2bit_cuda
+    from repro_torch.kernels.pattern_scan import (bounded_match_cuda,
+                                                  bounded_match_plain)
+    secs: dict = {}
+    t_all = time.perf_counter()
+    rng = np.random.default_rng(DEDUP_SEED)
+    n_tok = DEDUP_DOCS * DEDUP_DOC_LEN
+    toks = rng.integers(0, DEDUP_VOCAB, n_tok, dtype=np.int32)
+    docs = toks.reshape(DEDUP_DOCS, DEDUP_DOC_LEN)
+    perm = rng.permutation(DEDUP_DOCS)
+    n_copy = DEDUP_DOCS // DEDUP_COPY_EVERY
+    src, dst = perm[:n_copy], perm[n_copy:2 * n_copy]
+    docs[dst] = docs[src]                       # planted exact copies
+    doc_ids = np.repeat(np.arange(DEDUP_DOCS), DEDUP_DOC_LEN)
+    half = DEDUP_WINDOWS // 2
+    L = DEDUP_MIN_LEN
+    starts = rng.integers(0, n_tok - L, half)
+    win = np.concatenate([
+        np.stack([toks[s:s + L] for s in starts]),
+        rng.integers(0, DEDUP_VOCAB, (half, L), dtype=np.int32)])
+    fresh = rng.integers(0, DEDUP_VOCAB, L, dtype=np.int32)
+    dna = dna_corpus(TEXT_LEN, seed=DEDUP_SEED, dup_fraction=DEDUP_DNA_DUP)
+    Ld = DEDUP_DNA_MIN_LEN
+    dstarts = rng.integers(0, TEXT_LEN - Ld, half)
+    dwin = np.concatenate([
+        np.stack([dna[s:s + Ld] for s in dstarts]),
+        rng.integers(0, 4, (half, Ld))]).astype(np.int32)
+    dfresh = rng.integers(0, 4, Ld).astype(np.uint8)
+    secs["data"] = time.perf_counter() - t_all
+
+    # ---- counted: the dedup path through the public entry points ----
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    tstore = build_tablet_store(toks, is_dna=False,
+                                max_query_len=DEDUP_QUERY_LEN, device=dev)
+    torch.cuda.synchronize()
+    secs["token_build"] = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lcp = adjacent_lcp(tstore.text_codes, tstore.sa, L)
+    torch.cuda.synchronize()
+    secs["token_lcp"] = time.perf_counter() - t0
+    lcp_peak = torch.cuda.max_memory_allocated() - resident
+    n_dup_pairs = int((lcp >= L).sum())
+    del lcp
+    t0 = time.perf_counter()
+    tmask = D.duplicate_span_mask(tstore, L).cpu().numpy()
+    keep = D.filter_duplicate_docs(tstore, doc_ids, L, DEDUP_THRESHOLD)
+    secs["token_mask_and_filter"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    found = D.contamination_check(tstore, win)
+    secs["token_contamination"] = time.perf_counter() - t0
+    ttable = SuffixTable.from_store(tstore)
+    ttable.append(fresh)
+    found_t = D.contamination_check(ttable, np.concatenate([win,
+                                                            fresh[None]]))
+    t0 = time.perf_counter()
+    dstore = build_tablet_store(dna, is_dna=True,
+                                max_query_len=DEDUP_QUERY_LEN, device=dev)
+    torch.cuda.synchronize()
+    secs["dna_build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dlcp = adjacent_lcp(dstore.text_codes, dstore.sa, Ld)
+    torch.cuda.synchronize()
+    secs["dna_lcp"] = time.perf_counter() - t0
+    del dlcp
+    dmask = D.duplicate_span_mask(dstore, Ld).cpu().numpy()
+    dfrac = float(D.duplicate_fraction(dstore, Ld))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dfound = D.contamination_check(dstore, dwin)
+    secs["dna_contamination"] = time.perf_counter() - t0
+    dtable = SuffixTable.from_store(dstore)
+    dtable.append(dfresh)
+    dfound_t = D.contamination_check(dtable, np.concatenate(
+        [dwin, dfresh[None].astype(np.int32)]))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"[dedup-launches] " + " ".join(
+        f"{k}={v}" for k, v in launches.items()), flush=True)
+    for k in ("pack2bit", "bounded_search", "tier_scan"):
+        check(launches[k] > 0, f"{k} launched on the [dedup] path")
+
+    # ---- the independent numpy gram check ----
+    t0 = time.perf_counter()
+    want, sk = dup_mask_from_keys(np, gram_keys(np, toks, L, False), n_tok)
+    w_found = in_sorted(np, sk, gram_keys(np, win.reshape(-1), L, False)
+                        [::L])
+    del sk
+    secs["token_numpy_check"] = time.perf_counter() - t0
+    keep_want = np.ones(DEDUP_DOCS, bool)
+    keep_want[src] = keep_want[dst] = False
+    print(f"[dedup:tokens] n={n_tok} docs={DEDUP_DOCS} planted_pairs="
+          f"{n_copy} min_len={L} build_seconds={secs['token_build']:.4f} "
+          f"adjacent_lcp_seconds={secs['token_lcp']:.4f} "
+          f"adjacent_lcp_peak_bytes={lcp_peak} dup_pairs={n_dup_pairs} "
+          f"dup_positions={int(tmask.sum())} "
+          f"mask_equals_numpy={str(bool(np.array_equal(tmask, want))).lower()} "
+          f"dropped={int((~keep).sum())} contamination_windows="
+          f"{len(win)} found={int(found.sum())} queries_per_s="
+          f"{len(win) / secs['token_contamination']:.1f} "
+          f"card=\"{smi}\"", flush=True)
+    check(np.array_equal(tmask, want),
+          "[dedup:tokens] duplicate_span_mask equals the numpy gram check "
+          "on every position")
+    check(np.array_equal(keep, keep_want),
+          "[dedup:tokens] filter_duplicate_docs drops both members of "
+          "every planted pair and keeps every other document")
+    check(np.array_equal(found, w_found) and found[:half].all(),
+          "[dedup:tokens] contamination_check equals the numpy gram set")
+    check(np.array_equal(found_t[:-1], found) and bool(found_t[-1]),
+          "[dedup:tokens] contamination_check on a table finds an "
+          "appended window")
+    t0 = time.perf_counter()
+    want, sk = dup_mask_from_keys(np, gram_keys(np, dna, Ld, True),
+                                  TEXT_LEN)
+    w_found = in_sorted(np, sk, gram_keys(np, dwin.reshape(-1), Ld, True)
+                        [::Ld])
+    del sk
+    secs["dna_numpy_check"] = time.perf_counter() - t0
+    span = int(TEXT_LEN * DEDUP_DNA_DUP / 2)
+    planted = (dmask[:span - Ld + 1].all()
+               and dmask[TEXT_LEN - span:TEXT_LEN - Ld + 1].all())
+    print(f"[dedup:dna] n={TEXT_LEN} dup_fraction={DEDUP_DNA_DUP} "
+          f"min_len={Ld} build_seconds={secs['dna_build']:.4f} "
+          f"adjacent_lcp_seconds={secs['dna_lcp']:.4f} "
+          f"duplicate_fraction={dfrac:.6f} "
+          f"mask_equals_numpy={str(bool(np.array_equal(dmask, want))).lower()} "
+          f"planted_span_covered={str(bool(planted)).lower()} "
+          f"contamination_windows={len(dwin)} found={int(dfound.sum())} "
+          f"queries_per_s={len(dwin) / secs['dna_contamination']:.1f} "
+          f"card=\"{smi}\"", flush=True)
+    check(np.array_equal(dmask, want),
+          "[dedup:dna] duplicate_span_mask equals the numpy gram check on "
+          "every position")
+    check(bool(planted), "[dedup:dna] the mask covers the planted span "
+          "and its copy")
+    check(np.array_equal(dfound, w_found) and dfound[:half].all(),
+          "[dedup:dna] contamination_check equals the numpy gram set")
+    check(np.array_equal(dfound_t[:-1], dfound) and bool(dfound_t[-1]),
+          "[dedup:dna] contamination_check on a table finds an appended "
+          "window")
+
+    # ---- each kernel of the path against its plain version ----
+    dcodes = torch.from_numpy(dna).to(dev)
+    got = pack2bit_cuda(dcodes)
+    e_pk = max_abs_err(torch, [codec.words_i64(got)], [codec.words_i64(
+        ref.pack2bit_ref(dcodes.to(torch.int64).reshape(-1, 16).T))])
+    patt = codec.as_tensor(codec.pack_2bit_batch(dwin)[
+        :, :codec.packed_length(Ld)], dev)
+    plen = torch.full((len(dwin),), Ld, dtype=torch.int32, device=dev)
+    e_bs = max_abs_err(
+        torch, bounded_match_cuda(dstore.sa, dstore.text_packed,
+                                  dstore.n_real, patt, plen, dstore.n_pad,
+                                  dstore.pad_count),
+        bounded_match_plain(dstore, patt, plen))
+    stack = dtable._tierset().stack
+    targs = (patt.T.contiguous(), plen, stack.text_packed, stack.sa,
+             stack.pad_cnt, ops.tier_meta(stack))
+    e_ts = max_abs_err(torch, TS.tier_scan_cuda(*targs),
+                       TS.tier_scan_plain(*targs))
+    errs = {"pack2bit": e_pk, "bounded_search": e_bs, "tier_scan": e_ts}
+    print(f"[dedup:kernels] " + " ".join(
+        f"{k}_max_abs_err={v}" for k, v in errs.items())
+        + f" windows={len(dwin)}", flush=True)
+    del tstore, ttable, dstore, dtable, dcodes, stack, targs
+    secs["total"] = time.perf_counter() - t_all
+    print(f"[dedup] " + " ".join(f"{k}_seconds={v:.4f}"
+                                 for k, v in secs.items())
+          + f" card=\"{smi}\"", flush=True)
+    return launches, errs, secs
+
+
+def within(torch, got, want, tol: float = 5e-3) -> tuple:
+    """(ok, worst excess): |got - want| <= tol + tol * |want| everywhere
+    (``np.testing.assert_allclose(rtol=tol, atol=tol)``)."""
+    excess = ((got - want).abs() - tol - tol * want.abs()).max()
+    return bool(excess <= 0), float(excess)
+
+
+def lm_full_logits(torch, T, cfg, params, batch, start: int):
+    """Logits of a full forward at positions ``start..``."""
+    with torch.no_grad():
+        x, _ = T._embed_inputs(cfg, params, batch)
+        pos = torch.arange(x.shape[1], dtype=torch.int32,
+                           device=x.device)[None]
+        h, _, _ = T._run_stack(cfg, params, x, pos, None, False)
+        h = T.Ls.rmsnorm(params["ln_f"], h[:, start:], cfg.norm_eps)
+        return T._logits(cfg, params, h)
+
+
+def lm_phase(np, torch, check, dev, smi) -> dict:
+    """The [lm] path: qwen3-0.6b at full width, fp32, random weights from
+    a seeded generator — served (``greedy_generate``, ``make_prefill_fn``
+    / ``make_decode_fn``) and trained (AdamW, microbatches, checkpoint
+    and resume) — then the six dense configs reduced, card against CPU.
+    Returns the phase's seconds."""
+    from repro_torch import tree as TR
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import (ServeConfig, greedy_generate,
+                                     make_decode_fn, make_prefill_fn)
+    from repro_torch.training import (OptConfig, make_train_step,
+                                      train_state_init)
+    secs: dict = {}
+    t_all = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "[lm] fp32 matmuls at full precision (no TF32)")
+    cfg = get_config(LM_ARCH)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, LM_SEED, device=dev)
+    torch.cuda.synchronize()
+    secs["init"] = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in TR.leaves(params))
+    check(n_params == cfg.param_count() + 2 * cfg.d_model * cfg.num_layers
+          + cfg.d_model + 2 * cfg.head_dim * cfg.num_layers,
+          "[lm] the params tree has the config's parameter count (plus "
+          "norm scales)")
+
+    # [lm:serve]
+    rng = np.random.default_rng(LM_SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (LM_PROMPTS, LM_PROMPT_LEN),
+                           dtype=np.int32)
+    serve = ServeConfig(max_len=LM_MAX_LEN)
+    t0 = time.perf_counter()
+    toks_a = greedy_generate(cfg, params, {"tokens": prompts}, LM_NEW, serve)
+    torch.cuda.synchronize()
+    secs["greedy"] = time.perf_counter() - t0
+    prefill_fn, decode_fn = make_prefill_fn(cfg, serve), make_decode_fn(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill_fn(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    steps, out = [logits[:, 0]], [tok]
+    t0 = time.perf_counter()
+    for _ in range(LM_NEW - 1):
+        logits, caches = decode_fn(params, tok, caches)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        steps.append(logits[:, 0])
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    serve_peak = torch.cuda.max_memory_allocated() - resident
+    toks_b = torch.cat(out, dim=1)
+    profile_fn(torch, lambda: [decode_fn(params, tok, caches)
+                               for _ in range(4)], "lm:decode", "steps=4")
+    del caches
+    seq = torch.cat([torch.from_numpy(prompts).to(dev),
+                     toks_b[:, :-1]], dim=1)
+    full = lm_full_logits(torch, T, cfg, params, {"tokens": seq},
+                          LM_PROMPT_LEN - 1)
+    ok, excess = within(torch, torch.stack(steps, dim=1), full)
+    max_diff = float((torch.stack(steps, dim=1) - full).abs().max())
+    del full, steps
+    n_new = LM_PROMPTS * LM_NEW
+    print(f"[lm:serve] arch={LM_ARCH} d_model={cfg.d_model} layers="
+          f"{cfg.num_layers} vocab={cfg.vocab_size} params={n_params} "
+          f"dtype=float32 prompts={LM_PROMPTS}x{LM_PROMPT_LEN} new={LM_NEW} "
+          f"max_len={LM_MAX_LEN} prefill_ms={prefill_s * 1e3:.3f} "
+          f"decode_ms_per_token={decode_s / (LM_NEW - 1) * 1e3:.3f} "
+          f"tokens_per_s={n_new / (prefill_s + decode_s):.1f} "
+          f"greedy_seconds={secs['greedy']:.4f} peak_bytes_over_resident="
+          f"{serve_peak} teacher_forcing_max_abs_diff={max_diff:.3g} "
+          f"deterministic={str(bool(torch.equal(toks_a, toks_b))).lower()} "
+          f"card=\"{smi}\"", flush=True)
+    check(ok, f"[lm:serve] every decoded step's logits within 5e-3 of a "
+          f"full forward (worst excess {excess:.3g})")
+    check(torch.equal(toks_a, toks_b), "[lm:serve] two runs give the same "
+          "tokens")
+    check(bool(((toks_a >= 0) & (toks_a < cfg.vocab_size)).all()),
+          "[lm:serve] tokens in the vocabulary")
+    secs["serve"] = time.perf_counter() - t_all - secs["init"]
+    del params, seq
+
+    # [lm:train]
+    t1 = time.perf_counter()
+    batch = synthetic_batch(cfg, DataConfig(seed=LM_SEED,
+                                            global_batch=LM_TRAIN_BATCH,
+                                            seq_len=LM_TRAIN_SEQ), 0)
+    ocfg = OptConfig(kind="adamw", lr=LM_LR, warmup_steps=2,
+                     total_steps=LM_STEPS)
+    state0 = train_state_init(cfg, ocfg, LM_SEED, device=dev)
+    zero = OptConfig(lr=0.0, warmup_steps=0, total_steps=LM_STEPS,
+                     weight_decay=0.0)
+    _, m1 = make_train_step(cfg, zero, microbatches=1)(state0, batch)
+    _, m4 = make_train_step(cfg, zero, microbatches=4)(state0, batch)
+    mb = {k: (float(m1[k]), float(m4[k])) for k in ("loss", "grad_norm")}
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = make_train_step(cfg, ocfg)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_lm_",
+                             dir=os.path.join(ROOT, "build"))
+    try:
+        state, losses, step_s = state0, [], []
+        for i in range(LM_STEPS):
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t0)
+            if i + 1 == LM_SAVE_AT:
+                t0 = time.perf_counter()
+                CheckpointManager(ckdir).save(LM_SAVE_AT, state,
+                                              extra={"data_step": i + 1})
+                secs["save"] = time.perf_counter() - t0
+        train_peak = torch.cuda.max_memory_allocated() - resident
+        del state0
+        t0 = time.perf_counter()
+        at, resumed, extra = CheckpointManager(ckdir).restore_latest(state)
+        secs["restore"] = time.perf_counter() - t0
+        del state
+        again = []
+        for i in range(at, LM_STEPS):
+            resumed, m = step_fn(resumed, batch)
+            again.append(float(m["loss"]))
+        profile_fn(torch, lambda: step_fn(resumed, batch), "lm:train",
+                   "steps=1")
+        del resumed
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(again,
+                                                  losses[LM_SAVE_AT:]))
+    mean_step = sum(step_s[1:]) / (len(step_s) - 1)
+    print(f"[lm:train] arch={LM_ARCH} batch={LM_TRAIN_BATCH}x{LM_TRAIN_SEQ} "
+          f"steps={LM_STEPS} optimizer=adamw lr={LM_LR} losses="
+          f"{','.join(f'{x:.6f}' for x in losses)} "
+          f"step_ms={mean_step * 1e3:.3f} first_step_ms={step_s[0] * 1e3:.3f} "
+          f"tokens_per_s={LM_TRAIN_BATCH * LM_TRAIN_SEQ / mean_step:.1f} "
+          f"peak_bytes_over_resident={train_peak} "
+          f"microbatch_loss={mb['loss'][0]:.7f}/{mb['loss'][1]:.7f} "
+          f"microbatch_grad_norm={mb['grad_norm'][0]:.6f}/"
+          f"{mb['grad_norm'][1]:.6f} resumed_from={at} "
+          f"resume_max_rel_diff={rel:.3g} save_seconds={secs['save']:.3f} "
+          f"restore_seconds={secs['restore']:.3f} card=\"{smi}\"",
+          flush=True)
+    check(losses[-1] < losses[0], "[lm:train] the loss falls over 10 steps "
+          "on one batch")
+    check(abs(mb["loss"][0] - mb["loss"][1]) <= 1e-5 * abs(mb["loss"][0]),
+          "[lm:train] microbatches=4 loss within rtol 1e-5 of one batch")
+    check(abs(mb["grad_norm"][0] - mb["grad_norm"][1])
+          <= 1e-4 * abs(mb["grad_norm"][0]),
+          "[lm:train] microbatches=4 grad_norm within rtol 1e-4")
+    check(at == LM_SAVE_AT and extra == {"data_step": LM_SAVE_AT},
+          "[lm:train] resumed from the step-5 checkpoint")
+    check(rel <= 1e-6, "[lm:train] resumed losses equal the uninterrupted "
+          "run's (rtol 1e-6)")
+    secs["train"] = time.perf_counter() - t1
+
+    # [lm:archs]
+    t1 = time.perf_counter()
+    worst: dict = {}
+    for i, arch in enumerate(LM_DENSE):
+        c = get_config(arch).reduced()
+        p_cpu = T.init_params(c, i, device="cpu")
+        p_gpu = TR.map_structure(lambda x: x.to(dev), p_cpu)
+        b = synthetic_batch(c, DataConfig(global_batch=2, seq_len=16), i)
+        res = []
+        for p, d in ((p_cpu, torch.device("cpu")), (p_gpu, dev)):
+            bt = {k: torch.from_numpy(v).to(d) for k, v in b.items()}
+            b0 = {k: (v[:, :8] if k in ("tokens", "embeds") else v)
+                  for k, v in bt.items()}
+            lg, caches = T.prefill(c, p, b0, max_len=c.num_patches + 20)
+            st = [lg[:, 0]]
+            for t in range(8, 16):
+                if c.frontend == "audio_stub":
+                    lg, caches = T.decode_step(
+                        c, p, None, caches, embeds=bt["embeds"][:, t:t + 1])
+                else:
+                    lg, caches = T.decode_step(
+                        c, p, bt["tokens"][:, t:t + 1], caches)
+                st.append(lg[:, 0])
+            off = c.num_patches if c.frontend == "vlm_stub" else 0
+            full = lm_full_logits(torch, T, c, p, bt, 0)
+            res.append((full.cpu(), torch.stack(st, 1).cpu(),
+                        full[:, off + 7:off + 16].cpu()))
+        ok_dev, e_dev = within(torch, res[1][0], res[0][0])
+        ok_tf, e_tf = within(torch, res[1][1], res[1][2])
+        worst[arch] = max(e_dev, e_tf)
+        check(ok_dev, f"[lm:archs] {arch} card logits within 5e-3 of CPU")
+        check(ok_tf, f"[lm:archs] {arch} decode equals teacher forcing on "
+              f"the card")
+    secs["archs"] = time.perf_counter() - t1
+    print(f"[lm:archs] " + " ".join(f"{a}:worst_excess={v:.3g}"
+                                    for a, v in worst.items()), flush=True)
+    secs["total"] = time.perf_counter() - t_all
+    print(f"[lm] " + " ".join(f"{k}_seconds={v:.4f}"
+                              for k, v in secs.items())
+          + f" card=\"{smi}\"", flush=True)
+    return secs
 
 
 def main() -> int:
@@ -1940,11 +2461,16 @@ def main() -> int:
                                 for k, v in mesh_secs.items())
           + f" card=\"{smi}\"", flush=True)
 
+    # ------------ [dedup] and [lm]: the LM data path, then the LM -------
+    dedup_launches, dedup_err, _ = dedup_phase(np, torch, _build, check,
+                                               dev, smi)
+    lm_phase(np, torch, check, dev, smi)
+
     by_path = {"serve": launches, "compact": compact_launches,
                "persist": persist_launches, "long": long_launches,
                "client": client_launches, "serve_cli": serve_launches,
                "staged": staged_launches, "plane": plane_launches,
-               "mesh": mesh_launches}
+               "mesh": mesh_launches, "dedup": dedup_launches}
     Q.query = search
     print(f"[locate] {json.dumps({p: located[i].tolist() for i, p in enumerate(loc_pats)})}",
           flush=True)
@@ -2075,7 +2601,8 @@ def main() -> int:
         long = wide.get(r["name"], {})
         r["max_abs_err"] = max(r["max_abs_err"],
                                long.get("wide_max_abs_err", 0),
-                               mesh_err.get(r["name"], 0))
+                               mesh_err.get(r["name"], 0),
+                               dedup_err.get(r["name"], 0))
         # pattern_compare's launches: fused epilogues plus the standalone
         # compare (the mesh's routed owner choice; 0 on the other paths)
         r.update(long, launches_by_path={
@@ -2083,6 +2610,7 @@ def main() -> int:
                              if r["name"] == "pattern_compare" else 0)
             for k, v in by_path.items()},
             mesh_max_abs_err=mesh_err.get(r["name"]),
+            dedup_max_abs_err=dedup_err.get(r["name"]),
             ms_after_phases=cuda_ms(torch, kernel, reps))
         check(r["max_abs_err"] == 0,
               f"{r['name']} equals its plain version at every width")
@@ -2100,7 +2628,8 @@ def main() -> int:
         f"{r['name']}:launches={r['launches']},staged="
         f"{r['launches_by_path']['staged']},plane="
         f"{r['launches_by_path']['plane']},mesh="
-        f"{r['launches_by_path']['mesh']},match="
+        f"{r['launches_by_path']['mesh']},dedup="
+        f"{r['launches_by_path']['dedup']},match="
         f"{str(r['max_abs_err'] == 0).lower()}" for r in rows), flush=True)
     print(f"[memory] peak_bytes="
           f"{max(peak_before_staged, torch.cuda.max_memory_allocated())}",

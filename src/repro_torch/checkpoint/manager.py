@@ -1,7 +1,7 @@
 """Atomic, versioned snapshots — the numpy-only port of
-``repro.checkpoint.manager`` (the parts a table needs: ``save``,
-``stage_sharded``, ``all_steps``, ``latest_step``, ``restore_arrays``,
-``keep_n`` GC).
+``repro.checkpoint.manager``: ``save``, ``stage_sharded``,
+``all_steps``, ``latest_step``, ``restore_arrays``, ``restore``,
+``restore_latest`` and ``keep_n`` GC.
 
 On-disk format, the reference's, so a snapshot written by either package
 restores in the other::
@@ -9,9 +9,13 @@ restores in the other::
     <dir>/step_0000000001/arrays.npz   keys a0, a1, ... (one per leaf)
     <dir>/step_0000000001/meta.json    {"step", "paths", "extra"}
 
-``paths`` lists the leaves in the order jax flattens a dict (sorted
-keys) as jax's key-path strings (``"['codes']"``); a state here is a
-flat dict of arrays.  A save writes ``step_XXXX.tmp`` and publishes it
+``paths`` lists the leaves in the order jax flattens the state, as
+jax's key-path strings (``repro_torch.tree``): ``"['codes']"`` for a
+table's flat dict of arrays, ``".params['stack'][0]['attn']['wq']"``,
+``".opt_state['m'][...]"`` and ``".step"`` for a ``TrainState``.
+:meth:`CheckpointManager.restore` puts a step back into the structure of
+a ``like`` tree, leaf by path, so a train state saved by either package
+restores in the other.  A save writes ``step_XXXX.tmp`` and publishes it
 with one ``os.rename``, so a preempted save never corrupts the latest
 snapshot; ``.tmp`` dirs are ignored by :meth:`CheckpointManager.
 all_steps`.
@@ -35,6 +39,8 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch import tree as T
+
 
 def key_path(key: str) -> str:
     """jax's key-path string of a dict entry: ``"['codes']"``."""
@@ -54,10 +60,11 @@ def _host(arr) -> np.ndarray:
     return np.asarray(arr)
 
 
-def flatten(state: dict) -> list[tuple[str, np.ndarray]]:
-    """(path, array) per entry of a flat dict, in jax's flatten order
-    (sorted keys); tensors come back to host numpy."""
-    return [(key_path(k), _host(state[k])) for k in sorted(state)]
+def flatten(state) -> list[tuple[str, np.ndarray]]:
+    """(path, array) per leaf of a tree (a flat dict: one per entry, in
+    sorted key order), jax's flatten order and key paths; tensors come
+    back to host numpy."""
+    return [(p, _host(x)) for p, x in T.flatten_with_path(state)]
 
 
 class ShardedSave:
@@ -134,9 +141,9 @@ class CheckpointManager:
         """Open a shard-streaming save of ``step`` (see ShardedSave)."""
         return ShardedSave(self, step)
 
-    def save(self, step: int, state: dict,
+    def save(self, step: int, state,
              extra: Optional[dict] = None) -> str:
-        """Publish ``state`` (a flat dict of arrays) as ``step``."""
+        """Publish ``state`` (a tree of arrays or tensors) as ``step``."""
         flat = flatten(state)
         arrays = {f"a{i}": x for i, (_, x) in enumerate(flat)}
         meta = {"step": int(step),
@@ -190,3 +197,34 @@ class CheckpointManager:
                 np.concatenate(parts) if parts
                 else np.zeros((0,), np.dtype(ent["dtype"] or "int32")))
         return arrays, meta["extra"]
+
+    def restore(self, step: int, like):
+        """``(tree, extra)``: step ``step`` in the structure of ``like``,
+        each leaf found by its key path, checked for shape and cast to
+        the ``like`` leaf's dtype; a tensor leaf comes back a tensor on
+        that leaf's device, anything else numpy."""
+        saved, extra = self.restore_arrays(step)
+        leaves = []
+        for p, x in T.flatten_with_path(like):
+            if p not in saved:
+                raise KeyError(f"checkpoint missing leaf {p}")
+            a = saved[p]
+            if tuple(a.shape) != tuple(x.shape):
+                raise ValueError(f"shape mismatch at {p}: "
+                                 f"{a.shape} vs {tuple(x.shape)}")
+            if hasattr(x, "detach"):             # a tensor
+                import torch
+                leaves.append(torch.from_numpy(
+                    a if a.flags.writeable else a.copy()).to(
+                    device=x.device, dtype=x.dtype))
+            else:
+                leaves.append(a.astype(np.asarray(x).dtype))
+        return T.unflatten_like(like, leaves), extra
+
+    def restore_latest(self, like):
+        """``(step, tree, extra)`` of the latest step, or None."""
+        step = self.latest_step()
+        if step is None:
+            return None
+        tree, extra = self.restore(step, like)
+        return step, tree, extra

@@ -90,3 +90,45 @@ def rank_array(sa: torch.Tensor) -> torch.Tensor:
     rank[sa.to(torch.int64)] = torch.arange(n, dtype=torch.int32,
                                             device=sa.device)
     return rank
+
+
+# --------------------------------------------------------------------------
+# LCP of adjacent SA rows (blocked compare, depth-capped) — used by dedup.
+# --------------------------------------------------------------------------
+# Bytes a (row, offset) cell of one chunk holds at once, at most: two
+# int64 index grids, a gathered int32 grid, two int32 value grids and the
+# bool masks, rounded up.
+LCP_CELL_BYTES = 32
+LCP_MAX_BYTES = 256 << 20        # default cap on one chunk's intermediates
+
+
+def adjacent_lcp(codes: torch.Tensor, sa: torch.Tensor, max_lcp: int, *,
+                 max_bytes: int = LCP_MAX_BYTES) -> torch.Tensor:
+    """lcp[i] = longest common prefix (capped at ``max_lcp``) of suffixes
+    sa[i] and sa[i+1]; shape (n-1,) int32, on ``sa``'s device.  The
+    reference's O(n * max_lcp) compare (past the end ``-1`` for row i
+    against ``-2`` for row i+1, so a suffix that runs out never equals
+    another), over chunks of rows whose (rows, max_lcp) intermediates stay
+    under ``max_bytes``; the result is the same for every chunking."""
+    n = int(codes.shape[0])
+    rows = max(n - 1, 0)
+    out = torch.zeros(rows, dtype=torch.int32, device=sa.device)
+    if rows == 0 or max_lcp <= 0:
+        return out
+    chunk_rows = max(1, max_bytes // (LCP_CELL_BYTES * max_lcp))
+    c = codes.to(sa.device)
+    offs = torch.arange(max_lcp, dtype=torch.int64, device=sa.device)[None]
+    for r0 in range(0, rows, chunk_rows):
+        r1 = min(r0 + chunk_rows, rows)
+        ia = sa[r0:r1].to(torch.int64)[:, None] + offs
+        ib = sa[r0 + 1:r1 + 1].to(torch.int64)[:, None] + offs
+        va = torch.where(ia < n, c[ia.clamp_(0, n - 1)], -1)
+        vb = torch.where(ib < n, c[ib.clamp_(0, n - 1)], -2)
+        del ia, ib
+        # the leading run of equal columns ends at the first mismatch
+        ne = va != vb
+        del va, vb
+        first = ne.to(torch.uint8).argmax(dim=1)
+        out[r0:r1] = torch.where(ne.any(dim=1), first, max_lcp).to(
+            torch.int32)
+    return out

@@ -1,18 +1,22 @@
-"""repro_torch.serving — the scan service (``HedgedScanService``), the
-multi-process serving plane (``ServingPlane``, ``TabletRouter``,
-``RemoteTable``), the metrics feed and per-query tracing, ported from
-``repro.serving``.
+"""repro_torch.serving — LM serving (``ServeConfig``, ``make_prefill_fn``,
+``make_decode_fn``, ``greedy_generate``), the scan service
+(``HedgedScanService``), the multi-process serving plane
+(``ServingPlane``, ``TabletRouter``, ``RemoteTable``), the metrics feed
+and per-query tracing, ported from ``repro.serving``.
 
 Exports resolve lazily (PEP 562), as the reference's do, so the plane's
 numpy-only modules (``rpc``, ``router``, ``plane``, ``tablet_server``,
 ``metrics``, ``trace``) import without torch: tablet worker processes
-start in milliseconds.  The reference's LM serving functions are not
-ported yet.
+start in milliseconds.
 """
 import importlib
 
 _EXPORTS = {
     "HedgedScanService": "repro_torch.serving.engine",
+    "ServeConfig": "repro_torch.serving.engine",
+    "greedy_generate": "repro_torch.serving.engine",
+    "make_decode_fn": "repro_torch.serving.engine",
+    "make_prefill_fn": "repro_torch.serving.engine",
     "ScanPlanner": "repro_torch.core.planner",
     "ServingPlane": "repro_torch.serving.plane",
     "split_table": "repro_torch.serving.plane",

@@ -1,6 +1,10 @@
-"""Serving: the TabletSA scan service — the scan half of
-``repro.serving.engine``, ported (the reference's LM prefill/decode
-functions are not).
+"""Serving: LM prefill/decode entry points + the TabletSA scan service —
+the port of ``repro.serving.engine``.
+
+LM serving runs eagerly under ``torch.inference_mode()`` (no jit, nothing
+to compile): ``make_prefill_fn``/``make_decode_fn`` return plain
+functions and ``greedy_generate`` loops over them; the decode step
+writes into the caches it is given (``models.transformer.decode_step``).
 
 The scan service reproduces the paper's §V experiment shape (batched
 random-pattern scans) and adds the production feature the paper's Table IV
@@ -23,6 +27,57 @@ import torch
 from repro_torch.core import query as Q
 from repro_torch.core.planner import ScanPlanner
 from repro_torch.core.tablet import TabletStore
+from repro_torch.models import decode_step, prefill
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import batch_to, param_device
+
+
+# ---------------------------------------------------------------------------
+# LM serving
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    max_len: int = 512
+    temperature: float = 0.0         # 0 = greedy
+
+
+def make_prefill_fn(cfg: ModelConfig, serve: ServeConfig):
+    """fn(params, batch) -> (last logits, caches of capacity
+    ``serve.max_len``); the batch (numpy or tensors) moves to the
+    params' device."""
+    @torch.inference_mode()
+    def fn(params, batch):
+        return prefill(cfg, params, batch_to(batch, param_device(params)),
+                       max_len=serve.max_len)
+
+    return fn
+
+
+def make_decode_fn(cfg: ModelConfig):
+    """fn(params, tokens, caches) -> (logits, caches): one decode step."""
+    @torch.inference_mode()
+    def fn(params, tokens, caches):
+        return decode_step(cfg, params, tokens, caches)
+
+    return fn
+
+
+@torch.inference_mode()
+def greedy_generate(cfg: ModelConfig, params, batch, num_steps: int,
+                    serve: Optional[ServeConfig] = None) -> torch.Tensor:
+    """Greedy generation loop: (B, num_steps) int32 tokens on the params'
+    device."""
+    serve = serve or ServeConfig()
+    logits, caches = prefill(cfg, params,
+                             batch_to(batch, param_device(params)),
+                             max_len=serve.max_len)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    out = [tok]
+    for _ in range(num_steps - 1):
+        logits, caches = decode_step(cfg, params, tok, caches)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        out.append(tok)
+    return torch.cat(out, dim=1)
 
 
 def _host(x) -> np.ndarray:

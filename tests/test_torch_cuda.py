@@ -775,3 +775,104 @@ def test_mesh_kernels_match_their_plain_twins(cuda):
         assert torch.equal(g, w)
     a = Q.owner_lt_count(tablets[0], split, pp, pl)
     assert torch.equal(a, want[0].view(256, 8).sum(1, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dna", "tokens"])
+def test_dedup_on_the_card_matches_cpu(cuda, kind):
+    """``core.dedup`` on the card (a DNA store packed by ``pack2bit``, DNA
+    windows through ``bounded_search`` and, on a table with appends,
+    ``tier_scan``) equals the CPU run on every position and window."""
+    from repro_torch.api import SuffixTable
+    from repro_torch.core import dedup as D
+    from repro_torch.core.suffix_array import adjacent_lcp
+    from repro_torch.core.tablet import build_tablet_store
+    from repro_torch.data.pipeline import dna_corpus
+    rng = np.random.default_rng(1)
+    if kind == "dna":
+        codes, hi, is_dna = dna_corpus(60_000, seed=3, dup_fraction=0.2), 4, True
+    else:
+        codes = rng.integers(0, 151_936, 60_000).astype(np.int32)
+        codes[40_000:45_000] = codes[1_000:6_000]
+        hi, is_dna = 151_936, False
+    docs = np.arange(codes.size) // 1_000
+    stores = [build_tablet_store(codes, is_dna=is_dna, max_query_len=64,
+                                 min_rows=codes.size + 300, device=d)
+              for d in ("cpu", cuda)]
+    for min_len in (16, 50):
+        a, b = (adjacent_lcp(s.text_codes, s.sa, min_len) for s in stores)
+        assert torch.equal(a, b.cpu())
+        a, b = (D.duplicate_span_mask(s, min_len) for s in stores)
+        assert b.is_cuda and torch.equal(a, b.cpu())
+        np.testing.assert_array_equal(
+            *(D.filter_duplicate_docs(s, docs, min_len) for s in stores))
+    cut = rng.integers(0, codes.size - 40, 300)
+    w = np.concatenate([np.stack([codes[s:s + 40] for s in cut]),
+                        rng.integers(0, hi, (300, 40))]).astype(np.int32)
+    want = D.contamination_check(stores[0], w)
+    np.testing.assert_array_equal(D.contamination_check(stores[1], w), want)
+    assert want[:300].all()
+    fresh = rng.integers(0, hi, 500).astype(codes.dtype)
+    tables = [SuffixTable.from_codes(codes, is_dna=is_dna, max_query_len=64,
+                                     memtable_limit=256, device=d)
+              for d in ("cpu", cuda)]
+    for t in tables:
+        t.append(fresh[:300])             # sealed into a run
+        t.append(fresh[300:])             # memtable
+    w2 = np.concatenate([w, fresh[None, 10:50], fresh[None, 280:320]]
+                        ).astype(np.int32)
+    want = D.contamination_check(tables[0], w2)
+    np.testing.assert_array_equal(D.contamination_check(tables[1], w2), want)
+    assert want[-2:].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "yi-6b", "qwen1.5-110b",
+                                  "phi3-mini-3.8b", "musicgen-medium",
+                                  "internvl2-26b"])
+def test_dense_model_on_the_card_matches_cpu(cuda, arch):
+    """A reduced dense config: the same weights on the card and the CPU
+    give losses and logits within 5e-3; on the card decode equals
+    teacher forcing within 5e-3, and fp32 matmuls stay full precision."""
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer import batch_to
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config(arch).reduced()
+    p_cpu = T.init_params(cfg, 0, device="cpu")
+    p_gpu = TR.map_structure(lambda t: t.to(cuda), p_cpu)
+    batch = synthetic_batch(cfg, DataConfig(global_batch=2, seq_len=16), 0)
+    outs = []
+    for p, d in ((p_cpu, "cpu"), (p_gpu, cuda)):
+        b = batch_to(batch, d)
+        with torch.no_grad():
+            loss, _ = T.forward_train(cfg, p, b, remat=False)
+        b0 = {k: (v[:, :8] if k in ("tokens", "embeds") else v)
+              for k, v in b.items()}
+        lg, caches = T.prefill(cfg, p, b0, max_len=cfg.num_patches + 20)
+        steps = [lg[:, 0]]
+        for t in range(8, 16):
+            if cfg.frontend == "audio_stub":
+                lg, caches = T.decode_step(cfg, p, None, caches,
+                                           embeds=b["embeds"][:, t:t + 1])
+            else:
+                lg, caches = T.decode_step(cfg, p, b["tokens"][:, t:t + 1],
+                                           caches)
+            steps.append(lg[:, 0])
+        with torch.no_grad():
+            x, _ = T._embed_inputs(cfg, p, b)
+            pos = torch.arange(x.shape[1], dtype=torch.int32,
+                               device=x.device)[None]
+            h, _, _ = T._run_stack(cfg, p, x, pos, None, False)
+            full = T._logits(cfg, p, T.Ls.rmsnorm(p["ln_f"], h,
+                                                  cfg.norm_eps))
+        outs.append((float(loss), torch.stack(steps, 1).cpu(), full.cpu()))
+    (lc, sc, fc), (lg_, sg, fg) = outs
+    np.testing.assert_allclose(lg_, lc, rtol=5e-3, atol=5e-3)
+    np.testing.assert_allclose(sg.numpy(), sc.numpy(), rtol=5e-3, atol=5e-3)
+    np.testing.assert_allclose(fg.numpy(), fc.numpy(), rtol=5e-3, atol=5e-3)
+    off = cfg.num_patches if cfg.frontend == "vlm_stub" else 0
+    np.testing.assert_allclose(sg.numpy(), fg.numpy()[:, off + 7:off + 16],
+                               rtol=5e-3, atol=5e-3)

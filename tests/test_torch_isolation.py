@@ -42,7 +42,17 @@ def test_every_module_imports_with_jax_blocked():
     for m in ("repro_torch.core.dsa", "repro_torch.core.dsort",
               "repro_torch.distributed.collectives",
               "repro_torch.distributed.sharding",
-              "repro_torch.launch.mesh"):
+              "repro_torch.launch.mesh", "repro_torch.core.dedup",
+              "repro_torch.data", "repro_torch.data.pipeline",
+              "repro_torch.tree", "repro_torch.models",
+              "repro_torch.models.config", "repro_torch.models.layers",
+              "repro_torch.models.transformer", "repro_torch.models.convert",
+              "repro_torch.models.moe", "repro_torch.models.ssm",
+              "repro_torch.configs", "repro_torch.configs.qwen3_0_6b",
+              "repro_torch.configs.dna_suffix", "repro_torch.training",
+              "repro_torch.training.optimizer",
+              "repro_torch.training.train_step",
+              "repro_torch.launch.train"):
         assert m in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -103,10 +113,19 @@ def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
         return
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import dedup_token_pool
+    from repro_torch.models import init_params
+    from repro_torch.training import OptConfig, train_state_init
+    np = __import__("numpy")
+    cfg = get_config("qwen3-0.6b").reduced()
     for build in (lambda: SuffixTable.from_codes("ACGTACGT"),
-                  lambda: build_tablet_store(
-                      __import__("numpy").zeros(8, "uint8")),
-                  lambda: resolve_device("cuda")):
+                  lambda: build_tablet_store(np.zeros(8, "uint8")),
+                  lambda: resolve_device("cuda"),
+                  lambda: dedup_token_pool(np.arange(8), np.zeros(8, int),
+                                           4),
+                  lambda: init_params(cfg),
+                  lambda: train_state_init(cfg, OptConfig())):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
     assert resolve_device("cpu").type == "cpu"
