@@ -137,7 +137,8 @@ through the public entry points at chromosome scale:
                  numpy gram set, on each store and on a table after an
                  append; build, ``adjacent_lcp`` (seconds, device peak)
                  and queries/s;
-20. ``[lm]``     qwen3-0.6b at full width in fp32 from seeded weights:
+20. ``[lm]``     after the search phases have released the card:
+                 qwen3-0.6b at full width in fp32 from seeded weights:
                  ``greedy_generate`` of 8 prompts of 512 tokens, 64 new,
                  ``max_len`` 1024, and the same through ``make_prefill_fn``
                  / ``make_decode_fn``: equal tokens, every step's logits
@@ -145,9 +146,23 @@ through the public entry points at chromosome scale:
                  AdamW steps on one 8 x 512 batch, the loss falling,
                  microbatches 4 against 1 at lr 0, a save at step 5 and
                  a resume equal to the uninterrupted run
-                 (``[lm:train]``); the six dense configs reduced, card
-                 against CPU within 5e-3 and decode against teacher
-                 forcing on the card (``[lm:archs]``);
+                 (``[lm:train]``); ``[lm:moe]``: deepseek-v3 at its
+                 published widths cut to 4 layers (3 dense, 1 MoE; MTP
+                 depth 1) in bf16, ~26.7e9 parameters: 8 prompts of 512
+                 into a 1,024-slot MLA latent cache, 32 decoded tokens,
+                 the loss with its aux and MTP terms; at capacity 1.25
+                 prefill's last logits equal a full forward's and the
+                 dropped assignments are counted; at 8.0 decode against
+                 teacher forcing, the tokens routed otherwise at near
+                 ties counted apart, and layer 0's MLA in fp32 holds the
+                 absorbed decode within 5e-3 of the materialized path;
+                 ``[lm:ssm:*]``: mamba2-780m whole in fp32, served and
+                 trained as qwen3 (resumed losses bit-equal) and
+                 ``ssd_chunked`` against the step recurrence;
+                 ``[lm:archs]``: all ten configs reduced, card against
+                 CPU within 5e-3, decode against teacher forcing (the
+                 MoE configs at capacity 8.0), one AdamW step of each
+                 MoE or SSD config;
 21. ``[kernels]`` every kernel's launches on each of the ten paths
                  (serving 1-8, compaction 9-10, persistence 11-12, long 13,
                  client 14, serve 15, staged 16, plane 17, mesh 18,
@@ -186,6 +201,8 @@ It imports neither jax nor the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import gc
 import io
 import json
 import os
@@ -249,6 +266,14 @@ LM_SAVE_AT = 5
 LM_LR = 3e-4
 LM_DENSE = ("qwen3-0.6b", "yi-6b", "qwen1.5-110b", "phi3-mini-3.8b",
             "musicgen-medium", "internvl2-26b")
+LM_ARCHS = LM_DENSE + ("deepseek-v3-671b", "kimi-k2-1t-a32b",
+                       "jamba-v0.1-52b", "mamba2-780m")
+LM_MOE_ARCH = "deepseek-v3-671b"   # [lm:moe]: published widths, bf16
+LM_MOE_LAYERS = 4           # its 3 dense layers + 1 MoE layer (of 61)
+LM_MOE_NEW = 32             # [lm:moe]: new tokens (prompts as [lm])
+LM_MOE_TOL = 5e-2           # [lm:moe]: bf16 decode vs teacher forcing
+LM_MOE_NEAR_TIE = 0.1       # [lm:moe]: router-logit gap of a near tie
+LM_SSM_ARCH = "mamba2-780m"      # [lm:ssm]: full width and depth, fp32
 
 # Published H100 SXM peaks (NVIDIA data sheet), used for the bounds.
 MEM_BYTES_PER_S = 3.35e12
@@ -839,41 +864,21 @@ def lm_full_logits(torch, T, cfg, params, batch, start: int):
         return T._logits(cfg, params, h)
 
 
-def lm_phase(np, torch, check, dev, smi) -> dict:
-    """The [lm] path: qwen3-0.6b at full width, fp32, random weights from
-    a seeded generator — served (``greedy_generate``, ``make_prefill_fn``
-    / ``make_decode_fn``) and trained (AdamW, microbatches, checkpoint
-    and resume) — then the six dense configs reduced, card against CPU.
-    Returns the phase's seconds."""
+def lm_serve(np, torch, cfg, params, tag: str, check, smi, secs,
+             resident: int) -> None:
+    """``greedy_generate`` of LM_PROMPTS x LM_PROMPT_LEN prompts, LM_NEW
+    new tokens, ``max_len`` LM_MAX_LEN, then the same through
+    ``make_prefill_fn`` / ``make_decode_fn``: equal tokens, and every
+    step's logits within 5e-3 of a full forward.  ``resident``: the
+    device bytes allocated before the weights were made (the peak
+    statistics were reset there), so the peak counts the weights."""
     from repro_torch import tree as TR
-    from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.configs import get_config
-    from repro_torch.data import DataConfig, synthetic_batch
     from repro_torch.models import transformer as T
     from repro_torch.serving import (ServeConfig, greedy_generate,
                                      make_decode_fn, make_prefill_fn)
-    from repro_torch.training import (OptConfig, make_train_step,
-                                      train_state_init)
-    secs: dict = {}
     t_all = time.perf_counter()
-    check(not torch.backends.cuda.matmul.allow_tf32
-          and torch.get_float32_matmul_precision() == "highest",
-          "[lm] fp32 matmuls at full precision (no TF32)")
-    cfg = get_config(LM_ARCH)
-    torch.cuda.synchronize()
-    resident = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = T.init_params(cfg, LM_SEED, device=dev)
-    torch.cuda.synchronize()
-    secs["init"] = time.perf_counter() - t0
+    dev = T.param_device(params)
     n_params = sum(x.numel() for x in TR.leaves(params))
-    check(n_params == cfg.param_count() + 2 * cfg.d_model * cfg.num_layers
-          + cfg.d_model + 2 * cfg.head_dim * cfg.num_layers,
-          "[lm] the params tree has the config's parameter count (plus "
-          "norm scales)")
-
-    # [lm:serve]
     rng = np.random.default_rng(LM_SEED)
     prompts = rng.integers(0, cfg.vocab_size, (LM_PROMPTS, LM_PROMPT_LEN),
                            dtype=np.int32)
@@ -901,7 +906,8 @@ def lm_phase(np, torch, check, dev, smi) -> dict:
     serve_peak = torch.cuda.max_memory_allocated() - resident
     toks_b = torch.cat(out, dim=1)
     profile_fn(torch, lambda: [decode_fn(params, tok, caches)
-                               for _ in range(4)], "lm:decode", "steps=4")
+                               for _ in range(4)],
+               tag.strip("[]").replace("serve", "decode"), "steps=4")
     del caches
     seq = torch.cat([torch.from_numpy(prompts).to(dev),
                      toks_b[:, :-1]], dim=1)
@@ -911,9 +917,10 @@ def lm_phase(np, torch, check, dev, smi) -> dict:
     max_diff = float((torch.stack(steps, dim=1) - full).abs().max())
     del full, steps
     n_new = LM_PROMPTS * LM_NEW
-    print(f"[lm:serve] arch={LM_ARCH} d_model={cfg.d_model} layers="
+    dtype = str(TR.leaves(params)[0].dtype).replace("torch.", "")
+    print(f"{tag} arch={cfg.name} d_model={cfg.d_model} layers="
           f"{cfg.num_layers} vocab={cfg.vocab_size} params={n_params} "
-          f"dtype=float32 prompts={LM_PROMPTS}x{LM_PROMPT_LEN} new={LM_NEW} "
+          f"dtype={dtype} prompts={LM_PROMPTS}x{LM_PROMPT_LEN} new={LM_NEW} "
           f"max_len={LM_MAX_LEN} prefill_ms={prefill_s * 1e3:.3f} "
           f"decode_ms_per_token={decode_s / (LM_NEW - 1) * 1e3:.3f} "
           f"tokens_per_s={n_new / (prefill_s + decode_s):.1f} "
@@ -921,16 +928,24 @@ def lm_phase(np, torch, check, dev, smi) -> dict:
           f"{serve_peak} teacher_forcing_max_abs_diff={max_diff:.3g} "
           f"deterministic={str(bool(torch.equal(toks_a, toks_b))).lower()} "
           f"card=\"{smi}\"", flush=True)
-    check(ok, f"[lm:serve] every decoded step's logits within 5e-3 of a "
-          f"full forward (worst excess {excess:.3g})")
-    check(torch.equal(toks_a, toks_b), "[lm:serve] two runs give the same "
+    check(ok, f"{tag} every decoded step's logits within 5e-3 of a full "
+          f"forward (worst excess {excess:.3g})")
+    check(torch.equal(toks_a, toks_b), f"{tag} two runs give the same "
           "tokens")
     check(bool(((toks_a >= 0) & (toks_a < cfg.vocab_size)).all()),
-          "[lm:serve] tokens in the vocabulary")
-    secs["serve"] = time.perf_counter() - t_all - secs["init"]
-    del params, seq
+          f"{tag} tokens in the vocabulary")
+    secs["serve"] = time.perf_counter() - t_all
 
-    # [lm:train]
+
+def lm_train(np, torch, cfg, tag: str, check, smi, secs, dev) -> None:
+    """LM_STEPS AdamW steps on one LM_TRAIN_BATCH x LM_TRAIN_SEQ batch
+    (the loss falls), microbatches 4 against 1 at lr 0, a save at step
+    LM_SAVE_AT under ``build/`` and a resume whose losses equal the
+    uninterrupted run's bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.training import (OptConfig, make_train_step,
+                                      train_state_init)
     t1 = time.perf_counter()
     batch = synthetic_batch(cfg, DataConfig(seed=LM_SEED,
                                             global_batch=LM_TRAIN_BATCH,
@@ -971,15 +986,15 @@ def lm_phase(np, torch, check, dev, smi) -> dict:
         for i in range(at, LM_STEPS):
             resumed, m = step_fn(resumed, batch)
             again.append(float(m["loss"]))
-        profile_fn(torch, lambda: step_fn(resumed, batch), "lm:train",
-                   "steps=1")
+        profile_fn(torch, lambda: step_fn(resumed, batch),
+                   tag.strip("[]"), "steps=1")
         del resumed
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     rel = max(abs(a - b) / abs(b) for a, b in zip(again,
                                                   losses[LM_SAVE_AT:]))
     mean_step = sum(step_s[1:]) / (len(step_s) - 1)
-    print(f"[lm:train] arch={LM_ARCH} batch={LM_TRAIN_BATCH}x{LM_TRAIN_SEQ} "
+    print(f"{tag} arch={cfg.name} batch={LM_TRAIN_BATCH}x{LM_TRAIN_SEQ} "
           f"steps={LM_STEPS} optimizer=adamw lr={LM_LR} losses="
           f"{','.join(f'{x:.6f}' for x in losses)} "
           f"step_ms={mean_step * 1e3:.3f} first_step_ms={step_s[0] * 1e3:.3f} "
@@ -991,24 +1006,450 @@ def lm_phase(np, torch, check, dev, smi) -> dict:
           f"resume_max_rel_diff={rel:.3g} save_seconds={secs['save']:.3f} "
           f"restore_seconds={secs['restore']:.3f} card=\"{smi}\"",
           flush=True)
-    check(losses[-1] < losses[0], "[lm:train] the loss falls over 10 steps "
-          "on one batch")
+    check(losses[-1] < losses[0], f"{tag} the loss falls over "
+          f"{LM_STEPS} steps on one batch")
     check(abs(mb["loss"][0] - mb["loss"][1]) <= 1e-5 * abs(mb["loss"][0]),
-          "[lm:train] microbatches=4 loss within rtol 1e-5 of one batch")
+          f"{tag} microbatches=4 loss within rtol 1e-5 of one batch")
     check(abs(mb["grad_norm"][0] - mb["grad_norm"][1])
           <= 1e-4 * abs(mb["grad_norm"][0]),
-          "[lm:train] microbatches=4 grad_norm within rtol 1e-4")
+          f"{tag} microbatches=4 grad_norm within rtol 1e-4")
     check(at == LM_SAVE_AT and extra == {"data_step": LM_SAVE_AT},
-          "[lm:train] resumed from the step-5 checkpoint")
-    check(rel <= 1e-6, "[lm:train] resumed losses equal the uninterrupted "
-          "run's (rtol 1e-6)")
+          f"{tag} resumed from the step-{LM_SAVE_AT} checkpoint")
+    check(again == losses[LM_SAVE_AT:], f"{tag} resumed losses equal the "
+          "uninterrupted run's bit for bit")
     secs["train"] = time.perf_counter() - t1
 
-    # [lm:archs]
+
+def lm_phase(np, torch, check, dev, smi) -> dict:
+    """The [lm] path: qwen3-0.6b at full width, fp32, random weights from
+    a seeded generator — served (``greedy_generate``, ``make_prefill_fn``
+    / ``make_decode_fn``) and trained (AdamW, microbatches, checkpoint
+    and resume).  Returns the phase's seconds."""
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    secs: dict = {}
+    t_all = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "[lm] fp32 matmuls at full precision (no TF32)")
+    cfg = get_config(LM_ARCH)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, LM_SEED, device=dev)
+    torch.cuda.synchronize()
+    secs["init"] = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in TR.leaves(params))
+    check(n_params == cfg.param_count() + 2 * cfg.d_model * cfg.num_layers
+          + cfg.d_model + 2 * cfg.head_dim * cfg.num_layers,
+          "[lm] the params tree has the config's parameter count (plus "
+          "norm scales)")
+    lm_serve(np, torch, cfg, params, "[lm:serve]", check, smi, secs,
+             resident)
+    del params
+    lm_train(np, torch, cfg, "[lm:train]", check, smi, secs, dev)
+    secs["total"] = time.perf_counter() - t_all
+    print(f"[lm] " + " ".join(f"{k}_seconds={v:.4f}"
+                              for k, v in secs.items())
+          + f" card=\"{smi}\"", flush=True)
+    return secs
+
+
+@contextlib.contextmanager
+def recording_moe(Moe, calls: list):
+    """``models.moe.moe_ffn`` records, per call, (experts, gap): each
+    token's chosen experts, sorted, ``(B, S, k)``, -1 where the router
+    dropped the assignment at capacity; and the router-logit gap between
+    its k-th and (k+1)-th expert ``(B, S)``, the margin a rounding
+    difference must cross to change its route.  An extra ``route`` and
+    a router product per call, so only untimed runs use it."""
+    inner = Moe.moe_ffn
+
+    def recording(cfg, p, x):
+        B, S, d = x.shape
+        k = cfg.experts_per_token
+        xt = x.reshape(-1, d)
+        _, slots, C, _ = Moe.route(cfg, p, xt)
+        experts = (slots // C).masked_fill(slots == cfg.num_experts * C, -1)
+        top = (xt.float() @ p["router"]).topk(k + 1, dim=-1).values
+        calls.append((experts.T.sort(dim=-1).values.reshape(B, S, k),
+                      (top[:, k - 1] - top[:, k]).reshape(B, S)))
+        return inner(cfg, p, x)
+
+    Moe.moe_ffn = recording
+    try:
+        yield calls
+    finally:
+        Moe.moe_ffn = inner
+
+
+def dropped(calls) -> int:
+    return sum(int((e < 0).sum()) for e, _ in calls)
+
+
+def moe_fp32_check(torch, Moe, cfg, p, x) -> dict:
+    """``moe_ffn`` of one swiglu MoE layer ``p`` (fp32) on ``x`` (B, S, d)
+    three ways: one call over all B * S tokens; S calls of B tokens, as
+    decode runs it (another capacity and slot layout); and, for the
+    first position's B tokens, a plain per-token sum over their top-k
+    experts' weights plus the shared expert.  Returns the worst excess
+    over 5e-3 of the decode-shaped calls against the one call and of the
+    plain sum against both, and the assignments dropped at capacity."""
+    F = torch.nn.functional
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    drops = 0
+    with torch.no_grad():
+        whole, _ = Moe.moe_ffn(cfg, p, x)
+        parts = [x] + [x[:, t:t + 1] for t in range(S)]
+        for xs in parts:
+            _, slots, C, _ = Moe.route(cfg, p, xs.reshape(-1, d))
+            drops += int((slots == E * C).sum())
+        steps = torch.cat([Moe.moe_ffn(cfg, p, xs)[0] for xs in parts[1:]],
+                          dim=1)
+        x0, sh = x[:, 0], p["shared"]
+        gates, idx = torch.topk(torch.softmax(x0 @ p["router"], -1), k, -1)
+        gates = gates / gates.sum(-1, keepdim=True)
+        plain = []
+        for b in range(B):
+            e = idx[b]
+            z = F.silu(torch.einsum("d,edf->ef", x0[b], p["wg"][e])) \
+                * torch.einsum("d,edf->ef", x0[b], p["wi"][e])
+            y = torch.einsum("ef,efd->ed", z, p["wo"][e])
+            plain.append((gates[b, :, None] * y).sum(0)
+                         + (F.silu(x0[b] @ sh["wg"]) * (x0[b] @ sh["wi"]))
+                         @ sh["wo"])
+        plain = torch.stack(plain)[:, None]
+    return {"decode_vs_whole": within(torch, steps, whole)[1],
+            "plain_vs_decode": within(torch, steps[:, :1], plain)[1],
+            "plain_vs_whole": within(torch, whole[:, :1], plain)[1],
+            "max_abs_diff": float((steps - whole).abs().max()),
+            "dropped": drops}
+
+
+def lm_moe_phase(np, torch, check, dev, smi) -> int:
+    """[lm:moe]: deepseek-v3 at its published widths, cut to depth
+    LM_MOE_LAYERS (its 3 dense layers and 1 MoE layer, MTP depth 1), bf16
+    weights from a seed.  Serves 8 prompts of 512 into a 1,024-slot
+    cache and decodes 32 tokens through the absorbed latent cache; the
+    loss (xent, aux, mtp) of a forward on 8 x 512.  At the published
+    capacity factor 1.25, prefill's last logits equal a full forward's
+    (equal T) and the dropped assignments are counted; at 8.0 (the
+    reference's teacher-forcing setting, ``tests/test_models.py:72-73``)
+    every decoded step lies within LM_MOE_TOL of teacher forcing.
+    Returns the phase's peak device bytes."""
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as Moe, transformer as T
+    from repro_torch.serving import ServeConfig, greedy_generate
+    t_all = time.perf_counter()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[lm:moe] resident_bytes_at_start={resident} "
+          f"reserved_bytes={torch.cuda.memory_reserved()}", flush=True)
+    full_cfg = get_config(LM_MOE_ARCH)
+    cfg = dataclasses.replace(full_cfg, num_layers=LM_MOE_LAYERS)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, LM_SEED, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = TR.leaves(params)
+    n_params = sum(x.numel() for x in leaves)
+    n_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    print(f"[lm:moe] arch={cfg.name} layers={cfg.num_layers} (cut from "
+          f"{full_cfg.num_layers}: {cfg.first_dense_layers} dense + "
+          f"{cfg.num_layers - cfg.first_dense_layers} MoE, mtp_depth="
+          f"{cfg.mtp_depth}) d_model={cfg.d_model} heads={cfg.num_heads} "
+          f"q_lora={cfg.q_lora_rank} kv_lora={cfg.kv_lora_rank} experts="
+          f"{cfg.num_experts}+{cfg.num_shared_experts} top_k="
+          f"{cfg.experts_per_token} moe_d_ff={cfg.moe_d_ff} vocab="
+          f"{cfg.vocab_size} params={n_params} param_bytes={n_bytes} "
+          f"dtype=bfloat16 init_seconds={init_s:.3f} peak_bytes_after_init="
+          f"{torch.cuda.max_memory_allocated()}", flush=True)
+    rng = np.random.default_rng(LM_SEED)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_PROMPTS, LM_PROMPT_LEN), dtype=np.int32)
+        ).to(dev)
+    pbatch = {"tokens": prompts}
+
+    # serve at the published capacity factor 1.25, timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = T.prefill(cfg, params, pbatch, max_len=LM_MAX_LEN)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    first = logits
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    out = [tok]
+    t0 = time.perf_counter()
+    for _ in range(LM_MOE_NEW - 1):
+        logits, caches = T.decode_step(cfg, params, tok, caches)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    toks_a = torch.cat(out, dim=1)
+    c0 = caches["prefix"][0]
+    cache_bytes = (c0["ckv"].shape[-1] + c0["krope"].shape[-1]) \
+        * c0["ckv"].element_size()
+    kv_bytes = cfg.num_heads * (cfg.head_dim + cfg.rope_head_dim
+                                + cfg.v_head_dim) * c0["ckv"].element_size()
+    profile_fn(torch, lambda: [T.decode_step(cfg, params, tok, caches)
+                               for _ in range(4)], "lm:moe:decode",
+               "steps=4")
+    del caches
+    # the same again, counting drops: same tokens; prefill's last logits
+    # equal a full forward's at the same T
+    calls: list = []
+    with recording_moe(Moe, calls):
+        toks_b = greedy_generate(cfg, params, pbatch, LM_MOE_NEW,
+                                 ServeConfig(max_len=LM_MAX_LEN))
+        prefill_drops, decode_drops = dropped(calls[:1]), dropped(calls[1:])
+        calls.clear()
+        with torch.no_grad():
+            x, _ = T._embed_inputs(cfg, params, pbatch)
+            pos = torch.arange(x.shape[1], dtype=torch.int32,
+                               device=dev)[None]
+            h, _, _ = T._run_stack(cfg, params, x, pos, None, False)
+            h = T.Ls.rmsnorm(params["ln_f"], h, cfg.norm_eps)
+            fwd_last = T._logits(cfg, params, h[:, -1:])
+        del x, h
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            _, metrics = T.forward_train(cfg, params, pbatch, remat=False)
+        torch.cuda.synchronize()
+        loss_s = time.perf_counter() - t0
+        loss_drops = dropped(calls)
+        calls.clear()
+    metrics = {k: float(v) for k, v in metrics.items()}
+    last_equal = bool(torch.equal(first, fwd_last))
+    last_diff = float((first.float() - fwd_last.float()).abs().max())
+    del first, fwd_last
+
+    # teacher forcing at capacity factor 8.0 (no drops), each step's
+    # routes beside teacher forcing's
+    cfg8 = dataclasses.replace(cfg, moe_capacity_factor=8.0)
+    with recording_moe(Moe, calls):
+        logits, caches = T.prefill(cfg8, params, pbatch, max_len=LM_MAX_LEN)
+        steps = [logits[:, 0].float()]
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        out = [tok]
+        for _ in range(LM_MOE_NEW - 1):
+            logits, caches = T.decode_step(cfg8, params, tok, caches)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+            steps.append(logits[:, 0].float())
+            out.append(tok)
+        del caches
+        # per token, the experts of every MoE layer: (B, steps, layers * k)
+        n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
+        per_step = [calls[i:i + n_moe] for i in range(0, len(calls), n_moe)]
+        dec = torch.cat([torch.cat([e[:, -1:] for e, _ in per_step[0]], -1)]
+                        + [torch.cat([e for e, _ in st], -1)
+                           for st in per_step[1:]], dim=1)
+        drops8 = dropped(calls)
+        calls.clear()
+        seq = torch.cat([prompts, torch.cat(out, dim=1)[:, :-1]], dim=1)
+        full = lm_full_logits(torch, T, cfg8, params, {"tokens": seq},
+                              LM_PROMPT_LEN - 1).float()
+        drops8 += dropped(calls)
+        tf = torch.cat([e for e, _ in calls], -1)[:, LM_PROMPT_LEN - 1:]
+        gap = torch.stack([g for _, g in calls], -1).amin(-1)[
+            :, LM_PROMPT_LEN - 1:]
+        calls.clear()
+    diff = (torch.stack(steps, dim=1) - full).abs().amax(dim=-1)  # (B, n)
+    same = (dec == tf).all(dim=-1)          # routed as teacher forcing
+    worst = float(diff.max())
+    worst_same = float(diff[same].max()) if bool(same.any()) else 0.0
+    n_over = int((diff > LM_MOE_TOL).sum())
+    n_flip = int((~same).sum())
+    flip_gap = float(gap[~same].max()) if n_flip else 0.0
+    del full, steps, diff, seq
+
+    # the absorbed path against the materialized one where rounding does
+    # not hide a fault: layer 0's MLA at full width in fp32, prefill of
+    # the first LM_PROMPT_LEN positions, then decode over the latent cache
+    mla = TR.map_structure(lambda t: t.float(), params["prefix"][0]["attn"])
+    g = torch.Generator(device=dev).manual_seed(LM_SEED)
+    S1 = LM_PROMPT_LEN + LM_MOE_NEW
+    xs = torch.randn((LM_PROMPTS, S1, cfg.d_model), generator=g, device=dev)
+    pos = torch.arange(S1, dtype=torch.int32, device=dev)[None]
+    with torch.no_grad():
+        want, _ = T.Ls.mla_attention(cfg, mla, xs, pos)
+        got, cache = T.Ls.mla_attention(cfg, mla, xs[:, :LM_PROMPT_LEN],
+                                        pos[:, :LM_PROMPT_LEN])
+        cache = {k: torch.nn.functional.pad(v, (0, 0, 0, S1 - LM_PROMPT_LEN))
+                 for k, v in cache.items()}
+        cache["length"] = torch.tensor(LM_PROMPT_LEN, dtype=torch.int32,
+                                       device=dev)
+        outs = [got[:, -1:]]
+        for t in range(LM_PROMPT_LEN, S1):
+            o, cache = T.Ls.mla_attention(cfg, mla, xs[:, t:t + 1],
+                                          pos[:, t:t + 1], kv_cache=cache)
+            outs.append(o)
+    _, e_mla = within(torch, torch.cat(outs, dim=1),
+                      want[:, LM_PROMPT_LEN - 1:])
+    del mla, xs, want, got, cache, outs
+
+    # the full-width MoE layer where rounding does not hide a fault: its
+    # weights in fp32 (45 GB; the rest of the model freed first, the
+    # leaves cast one by one), capacity 8.0, on LM_PROMPTS x LM_MOE_NEW
+    # seeded hidden states
+    moe = TR.map_structure(lambda t: t[0], params["stack"][0]["moe"])
+    del params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in list(moe):
+        moe[name] = TR.map_structure(lambda t: t.float(), moe[name])
+    hs = torch.randn((LM_PROMPTS, LM_MOE_NEW, cfg.d_model), generator=g,
+                     device=dev)
+    mf = moe_fp32_check(torch, Moe, cfg8, moe, hs)
+    del moe, hs
+    peak = torch.cuda.max_memory_allocated()
+    secs = time.perf_counter() - t_all
+    print(f"[lm:moe] prompts={LM_PROMPTS}x{LM_PROMPT_LEN} new={LM_MOE_NEW} "
+          f"max_len={LM_MAX_LEN} capacity_factor={cfg.moe_capacity_factor} "
+          f"prefill_ms={prefill_s * 1e3:.3f} decode_ms_per_token="
+          f"{decode_s / (LM_MOE_NEW - 1) * 1e3:.3f} tokens_per_s="
+          f"{LM_PROMPTS * LM_MOE_NEW / (prefill_s + decode_s):.1f} "
+          f"mla_cache_bytes_per_token_layer={cache_bytes} "
+          f"materialized_kv_bytes_per_token_layer={kv_bytes} "
+          f"dropped_assignments_prefill={prefill_drops} "
+          f"dropped_assignments_decode={decode_drops} "
+          f"dropped_assignments_loss={loss_drops} "
+          f"prefill_last_equals_forward={str(last_equal).lower()} "
+          f"prefill_last_max_abs_diff={last_diff:.3g} "
+          f"deterministic={str(bool(torch.equal(toks_a, toks_b))).lower()} "
+          f"card=\"{smi}\"", flush=True)
+    print(f"[lm:moe] loss batch={LM_PROMPTS}x{LM_PROMPT_LEN} " + " ".join(
+        f"{k}={v:.6f}" for k, v in sorted(metrics.items()))
+        + f" forward_ms={loss_s * 1e3:.3f}", flush=True)
+    print(f"[lm:moe] capacity_factor=8.0 dropped_assignments={drops8} "
+          f"teacher_forcing_max_abs_diff={worst:.4g} tolerance={LM_MOE_TOL} "
+          f"worst_excess={worst - LM_MOE_TOL:.4g} tokens={same.numel()} "
+          f"routed_otherwise={n_flip} same_route_max_abs_diff="
+          f"{worst_same:.4g} same_route_worst_excess="
+          f"{worst_same - LM_MOE_TOL:.4g} tokens_over_tolerance={n_over} "
+          f"routed_otherwise_max_router_gap={flip_gap:.4g} "
+          f"near_tie={LM_MOE_NEAR_TIE} mla_fp32_worst_excess={e_mla:.3g} "
+          f"peak_bytes={peak} seconds={secs:.3f} card=\"{smi}\"",
+          flush=True)
+    print(f"[lm:moe:fp32] layer={cfg.first_dense_layers} tokens="
+          f"{LM_PROMPTS}x{LM_MOE_NEW} capacity_factor=8.0 dropped_assignments="
+          f"{mf['dropped']} decode_vs_whole_max_abs_diff="
+          f"{mf['max_abs_diff']:.3g} decode_vs_whole_worst_excess="
+          f"{mf['decode_vs_whole']:.3g} plain_vs_decode_worst_excess="
+          f"{mf['plain_vs_decode']:.3g} plain_vs_whole_worst_excess="
+          f"{mf['plain_vs_whole']:.3g}", flush=True)
+    check(e_mla <= 0, f"[lm:moe] the absorbed MLA decode of layer 0 in "
+          f"fp32 within 5e-3 of the materialized path (worst excess "
+          f"{e_mla:.3g})")
+    check(mf["dropped"] == 0 and max(mf["decode_vs_whole"],
+                                     mf["plain_vs_decode"],
+                                     mf["plain_vs_whole"]) <= 0,
+          "[lm:moe] the full-width MoE layer in fp32 at capacity 8.0: "
+          "decode-shaped calls, one call and a plain per-token sum agree "
+          "within 5e-3, nothing dropped")
+    check(flip_gap <= LM_MOE_NEAR_TIE, f"[lm:moe] a decoded token routed "
+          f"otherwise than under teacher forcing is a near tie (router gap "
+          f"{flip_gap:.4g} <= {LM_MOE_NEAR_TIE})")
+    check(drops8 == 0, "[lm:moe] capacity 8.0 drops nothing")
+    check(last_equal, "[lm:moe] at capacity 1.25 prefill's last logits "
+          "equal the full forward's")
+    check(all(np.isfinite(metrics[k]) for k in ("xent", "aux", "mtp",
+                                                 "loss")),
+          "[lm:moe] xent, aux and mtp are finite")
+    check(torch.equal(toks_a, toks_b), "[lm:moe] two runs give the same "
+          "tokens")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return peak
+
+
+def lm_ssm_phase(np, torch, check, dev, smi) -> int:
+    """[lm:ssm]: mamba2-780m at full width and depth, fp32 without TF32,
+    random weights from a seed: served and trained as [lm] serves and
+    trains qwen3 (resumed losses bit for bit), then ``ssd_chunked`` on the
+    card against the step recurrence.  Returns the phase's peak device
+    bytes."""
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as Ssm, transformer as T
+    secs: dict = {}
+    t_all = time.perf_counter()
+    cfg = get_config(LM_SSM_ARCH)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, LM_SEED, device=dev)
+    torch.cuda.synchronize()
+    secs["init"] = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in TR.leaves(params))
+    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    extra = cfg.num_layers * (di + 2 * N + 3 * H + di + cfg.d_model) \
+        + cfg.d_model          # conv_b, A_log, dt_bias, D, norms; ln_f
+    check(n_params == cfg.param_count() + extra,
+          "[lm:ssm] the params tree has the config's parameter count (plus "
+          "norm scales, conv biases and the per-head A_log, dt_bias, D)")
+    lm_serve(np, torch, cfg, params, "[lm:ssm:serve]", check, smi, secs,
+             resident)
+    del params
+    peak = torch.cuda.max_memory_allocated()
+    lm_train(np, torch, cfg, "[lm:ssm:train]", check, smi, secs, dev)
+    peak = max(peak, torch.cuda.max_memory_allocated())
+
+    # ssd_chunked against the step recurrence (tests/test_models.py:126)
+    g = torch.Generator(device=dev).manual_seed(LM_SEED)
+    b, s, h, p, n = 2, 32, 3, 8, 4
+    x = torch.randn((b, s, h, p), generator=g, device=dev)
+    dt = 0.1 + 0.8 * torch.rand((b, s, h), generator=g, device=dev)
+    A = -(0.5 + torch.rand((h,), generator=g, device=dev))
+    Bm = torch.randn((b, s, n), generator=g, device=dev)
+    Cm = torch.randn((b, s, n), generator=g, device=dev)
+    y, final = Ssm.ssd_chunked(x, dt, A, Bm, Cm, chunk=8)
+    st = torch.zeros((b, h, p, n), device=dev)
+    ys = []
+    for t in range(s):
+        st = st * torch.exp(dt[:, t] * A)[..., None, None] + torch.einsum(
+            "bhp,bn->bhpn", x[:, t] * dt[:, t][..., None], Bm[:, t])
+        ys.append(torch.einsum("bn,bhpn->bhp", Cm[:, t], st))
+    ok_ssd, e_ssd = within(torch, y, torch.stack(ys, dim=1), 2e-4)
+    ok_fin, e_fin = within(torch, final, st, 2e-4)
+    secs["total"] = time.perf_counter() - t_all
+    print(f"[lm:ssm:ssd] b={b} s={s} h={h} p={p} n={n} chunk=8 "
+          f"y_worst_excess={e_ssd:.3g} state_worst_excess={e_fin:.3g}",
+          flush=True)
+    check(ok_ssd and ok_fin, "[lm:ssm] ssd_chunked on the card equals the "
+          "step recurrence (rtol/atol 2e-4)")
+    print(f"[lm:ssm] " + " ".join(f"{k}_seconds={v:.4f}"
+                                  for k, v in secs.items())
+          + f" peak_bytes={peak} card=\"{smi}\"", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return peak
+
+
+def lm_archs_phase(np, torch, check, dev, smi) -> None:
+    """[lm:archs]: all ten LM configs ``reduced()``, the same weights on
+    the card and the CPU: logits within 5e-3, decode equal to teacher
+    forcing on the card (the MoE configs at capacity 8.0, as the
+    reference's test), and one AdamW step of each config ported after
+    the dense ones, with finite parameters afterwards."""
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.training import OptConfig, TrainState, make_train_step
+    from repro_torch.training import optimizer as opt
     t1 = time.perf_counter()
     worst: dict = {}
-    for i, arch in enumerate(LM_DENSE):
+    for i, arch in enumerate(LM_ARCHS):
         c = get_config(arch).reduced()
+        if c.is_moe:
+            c = dataclasses.replace(c, moe_capacity_factor=8.0)
         p_cpu = T.init_params(c, i, device="cpu")
         p_gpu = TR.map_structure(lambda x: x.to(dev), p_cpu)
         b = synthetic_batch(c, DataConfig(global_batch=2, seq_len=16), i)
@@ -1037,14 +1478,21 @@ def lm_phase(np, torch, check, dev, smi) -> dict:
         check(ok_dev, f"[lm:archs] {arch} card logits within 5e-3 of CPU")
         check(ok_tf, f"[lm:archs] {arch} decode equals teacher forcing on "
               f"the card")
-    secs["archs"] = time.perf_counter() - t1
+        if arch not in LM_DENSE:
+            ocfg = OptConfig(kind="adamw", lr=1e-3, warmup_steps=1,
+                             total_steps=10)
+            state = TrainState(params=p_gpu, opt_state=opt.init(ocfg, p_gpu),
+                               step=torch.zeros((), dtype=torch.int32,
+                                                device=dev))
+            state, m = make_train_step(c, ocfg)(state, b)
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in TR.leaves(state.params))
+            check(finite and np.isfinite(float(m["loss"])),
+                  f"[lm:archs] {arch} one AdamW step on the card leaves "
+                  f"finite parameters")
     print(f"[lm:archs] " + " ".join(f"{a}:worst_excess={v:.3g}"
-                                    for a, v in worst.items()), flush=True)
-    secs["total"] = time.perf_counter() - t_all
-    print(f"[lm] " + " ".join(f"{k}_seconds={v:.4f}"
-                              for k, v in secs.items())
-          + f" card=\"{smi}\"", flush=True)
-    return secs
+                                    for a, v in worst.items())
+          + f" seconds={time.perf_counter() - t1:.4f}", flush=True)
 
 
 def main() -> int:
@@ -1054,6 +1502,47 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    failures: list[str] = []
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(what)
+            print(f"[FAIL] {what}", flush=True)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"[device] {smi}", flush=True)
+    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}", flush=True)
+
+    rows, peak = search_paths(np, torch, check, smi)
+    # the LM phases run on a card that the search phases no longer hold
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    lm_phase(np, torch, check, dev, smi)
+    peak = max(peak, lm_moe_phase(np, torch, check, dev, smi))
+    peak = max(peak, lm_ssm_phase(np, torch, check, dev, smi))
+    lm_archs_phase(np, torch, check, dev, smi)
+    print(f"[memory] peak_bytes={peak}", flush=True)
+    print(smi, flush=True)          # card name and power limit, as is
+    if failures:
+        print(f"chip_smoke: {len(failures)} check(s) failed: {failures}",
+              file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def search_paths(np, torch, check, smi) -> tuple:
+    """Phases 1-19 and the kernels' rows: every search path, each kernel
+    held against its plain versions and timed.  Returns (rows, peak
+    device bytes); what it built is released when it returns."""
     from repro_torch.api import SuffixTable
     from repro_torch.core import codec
     from repro_torch.core import query as Q
@@ -1070,21 +1559,6 @@ def main() -> int:
                                                   bounded_search_plain,
                                                   pattern_compare_cuda)
     from repro_torch.core.suffix_array import build_suffix_array
-
-    failures: list[str] = []
-
-    def check(ok: bool, what: str) -> None:
-        if not ok:
-            failures.append(what)
-            print(f"[FAIL] {what}", flush=True)
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
-    print(f"[device] {smi}", flush=True)
-    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
     _build.build()
@@ -2464,7 +2938,6 @@ def main() -> int:
     # ------------ [dedup] and [lm]: the LM data path, then the LM -------
     dedup_launches, dedup_err, _ = dedup_phase(np, torch, _build, check,
                                                dev, smi)
-    lm_phase(np, torch, check, dev, smi)
 
     by_path = {"serve": launches, "compact": compact_launches,
                "persist": persist_launches, "long": long_launches,
@@ -2631,19 +3104,7 @@ def main() -> int:
         f"{r['launches_by_path']['mesh']},dedup="
         f"{r['launches_by_path']['dedup']},match="
         f"{str(r['max_abs_err'] == 0).lower()}" for r in rows), flush=True)
-    print(f"[memory] peak_bytes="
-          f"{max(peak_before_staged, torch.cuda.max_memory_allocated())}",
-          flush=True)
-    print(smi, flush=True)          # card name and power limit, as is
-    if failures:
-        print(f"chip_smoke: {len(failures)} check(s) failed: {failures}",
-              file=sys.stderr)
-        return 1
-    print(json.dumps({"kernels": rows}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return rows, max(peak_before_staged, torch.cuda.max_memory_allocated())
 
 
 if __name__ == "__main__":

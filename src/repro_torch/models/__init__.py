@@ -1,6 +1,6 @@
-"""repro_torch.models — the LM side of the port (``repro.models``),
-dense half: configs, layers, the decoder stack and the weight converter.
-MoE, MLA, MTP and the Mamba2 SSD raise ``NotImplementedError``."""
+"""repro_torch.models — the LM side of the port (``repro.models``):
+configs, layers (GQA, MLA, MLPs), MoE, the Mamba2 SSD, the decoder stack
+(prefix + periods, MTP) and the weight converter."""
 from repro_torch.models import config, layers, moe, ssm, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (Transformer, decode_step,

@@ -26,16 +26,23 @@ def _is_params(tree) -> bool:
             and not isinstance(tree.get("embed"), (dict, type(None))))
 
 
+def _tensor(a) -> torch.Tensor:
+    """A numpy array as a tensor, bit for bit; bfloat16 (``ml_dtypes``'s,
+    which jax hands out) through its 16-bit pattern."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def params_from_reference(cfg: ModelConfig, tree,
                           device: DeviceLike = None):
     """A reference tree of arrays -> the port's: a params tree becomes a
-    :class:`Transformer` of ``cfg`` (raises ``NotImplementedError`` for
-    what this slice does not run), an optimizer state a tree of tensors.
-    Values and dtypes are kept bit for bit; tensors land on ``device``
-    (``cuda`` when None)."""
+    :class:`Transformer` of ``cfg``, an optimizer state a tree of tensors.
+    Values and dtypes (bfloat16 too) are kept bit for bit; tensors land
+    on ``device`` (``cuda`` when None)."""
     dev = resolve_device(device)
-    tensors = T.map_structure(
-        lambda a: torch.from_numpy(np.array(a)).to(dev), tree)
+    tensors = T.map_structure(lambda a: _tensor(a).to(dev), tree)
     return Transformer(cfg, tensors) if _is_params(tree) else tensors
 
 

@@ -1,5 +1,5 @@
 """Shared transformer layers — the port of ``repro.models.layers``:
-RMSNorm, RoPE, GQA/MHA attention, MLPs.
+RMSNorm, RoPE, GQA/MHA attention, MLA, MLPs.
 
 Functional style, as in the reference: params are nested dicts of
 tensors (the leaves of :class:`repro_torch.models.transformer.
@@ -7,8 +7,7 @@ Transformer`), ``init_*`` builds them from a ``torch.Generator``, the
 apply functions consume them.  Softmax and norms accumulate in fp32;
 masked logits are ``-1e30``, not ``-inf``.  Attention is plain torch
 (``einsum`` and a masked fp32 softmax), as the reference computes it
-outside any Pallas kernel.  MLA is the next LM slice (ROADMAP queue 1,
-item 8): :func:`init_mla` and :func:`mla_attention` raise.
+outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -18,15 +17,23 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 
-NEXT_SLICE = ("is not ported yet: MLA, MoE and MTP are the next LM slice "
-              "of ROADMAP queue 1 item 8 (then the Mamba2 SSD and the hybrid "
-              "stack)")
+# A leaf is drawn in slabs along its first axis, so its fp32 draw never
+# holds more than this many values at once (a full-width deepseek-v3
+# expert leaf is 3.76e9 values: 15 GB in fp32).  A leaf of at most this
+# many values is one slab, the same draw as one ``randn`` of its shape.
+INIT_SLAB_VALUES = 2**30
 
 
 def _dense_init(gen: torch.Generator, shape, in_axis_size, dtype):
     scale = 1.0 / np.sqrt(max(in_axis_size, 1))
-    return (torch.randn(shape, generator=gen, device=gen.device)
-            * scale).to(dtype)
+    shape = tuple(shape)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    rows = max(1, INIT_SLAB_VALUES // int(np.prod(shape[1:])))
+    for r in range(0, shape[0], rows):
+        n = min(rows, shape[0] - r)
+        out[r:r + n] = (torch.randn((n,) + shape[1:], generator=gen,
+                                    device=gen.device) * scale).to(dtype)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -113,8 +120,9 @@ class attn_chunking:
 
 
 def _sdpa(q, k, v, *, causal: bool, q_offset=0, kv_len_mask=None):
-    """q: (B, Sq, H, dh), k/v: (B, Sk, KV, dv) with H % KV == 0.
-    fp32 softmax; returns (B, Sq, H, dv).  For Sq * Sk at or above the
+    """q/k: (B, Sq|Sk, H|KV, dh), v: (B, Sk, KV, dv) with H % KV == 0;
+    dv may differ from dh (MLA: q/k of 192, v of 128), and the scale is
+    1/sqrt(dh).  fp32 softmax; returns (B, Sq, H, dv).  For Sq * Sk at or above the
     chunking threshold squared (and Sk a multiple of the chunk) the KV
     axis runs in online-softmax chunks, so peak memory is O(Sq x chunk);
     decode (Sq == 1) always takes the dense path, as in the reference."""
@@ -239,14 +247,94 @@ def attention(cfg: ModelConfig, p, x, positions, *, kv_cache=None,
 
 
 # ---------------------------------------------------------------------------
-# MLA (DeepSeek-V3 family): the next LM slice
+# MLA (DeepSeek-V3 family): low-rank Q/KV with decoupled RoPE, compressed
+# KV cache, absorbed decode path.
 # ---------------------------------------------------------------------------
-def init_mla(cfg: ModelConfig, gen, dtype):
-    raise NotImplementedError(f"{cfg.name}: MLA attention {NEXT_SLICE}")
+def init_mla(cfg: ModelConfig, gen: torch.Generator, dtype):
+    d, H = cfg.d_model, cfg.num_heads
+    r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    p = {}
+    if r_q:
+        p["wq_a"] = _dense_init(gen, (d, r_q), d, dtype)
+        p["q_a_norm"] = init_rmsnorm(r_q, dtype, gen.device)
+        p["wq_b"] = _dense_init(gen, (r_q, H, dn + dr), r_q, dtype)
+    else:
+        p["wq"] = _dense_init(gen, (d, H, dn + dr), d, dtype)
+    p["wkv_a"] = _dense_init(gen, (d, r_kv + dr), d, dtype)
+    p["kv_a_norm"] = init_rmsnorm(r_kv, dtype, gen.device)
+    p["wk_b"] = _dense_init(gen, (r_kv, H, dn), r_kv, dtype)
+    p["wv_b"] = _dense_init(gen, (r_kv, H, dv), r_kv, dtype)
+    p["wo"] = _dense_init(gen, (H, dv, d), H * dv, dtype)
+    return p
+
+
+def _mla_q(cfg, p, x):
+    if cfg.q_lora_rank:
+        cq = torch.einsum("bsd,dr->bsr", x, p["wq_a"])
+        cq = rmsnorm(p["q_a_norm"], cq, cfg.norm_eps)
+        q = torch.einsum("bsr,rhk->bshk", cq, p["wq_b"])
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    return torch.split(q, [cfg.head_dim, cfg.rope_head_dim], dim=-1)
 
 
 def mla_attention(cfg: ModelConfig, p, x, positions, *, kv_cache=None):
-    raise NotImplementedError(f"{cfg.name}: MLA attention {NEXT_SLICE}")
+    """Prefill/train (kv_cache None): materialized K/V in ``x.dtype``
+    (q/k of head_dim + rope_head_dim, v of v_head_dim) through
+    :func:`_sdpa`; the cache keeps only the compressed ``{"ckv" (B, S,
+    r_kv), "krope" (B, S, dr)}``.  Decode (kv_cache with ``length``):
+    absorbed attention over the latent cache with fp32 logits and a
+    ``-1e30`` mask; the step's ``ckv``/``krope`` are written INTO the
+    given cache at ``length`` (in place, as :func:`attention` does)."""
+    B, S, _ = x.shape
+    dn, dr = cfg.head_dim, cfg.rope_head_dim
+    q_nope, q_rope = _mla_q(cfg, p, x)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kv = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])
+    ckv, k_rope = torch.split(kv, [cfg.kv_lora_rank, dr], dim=-1)
+    ckv = rmsnorm(p["kv_a_norm"], ckv, cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+
+    if kv_cache is None:
+        # materialized: k = [W_uk ckv ; k_rope], v = W_uv ckv
+        k_nope = torch.einsum("bsr,rhk->bshk", ckv, p["wk_b"])
+        v = torch.einsum("bsr,rhv->bshv", ckv, p["wv_b"])
+        H = cfg.num_heads
+        k_rope_h = k_rope[:, :, None, :].expand(B, S, H, dr)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope_h], dim=-1)
+        out = _sdpa(q, k, v, causal=True)
+        new_cache = {"ckv": ckv, "krope": k_rope}
+    else:
+        length = kv_cache["length"]
+        cc, cr = kv_cache["ckv"], kv_cache["krope"]
+        at = (length.to(torch.int64)
+              + torch.arange(S, dtype=torch.int64, device=x.device))
+        cc.index_copy_(1, at, ckv.to(cc.dtype))
+        cr.index_copy_(1, at, k_rope.to(cr.dtype))
+        # absorbed: q_lat = q_nope @ W_uk  (B,S,H,r)
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"])
+        Sc = cc.shape[1]
+        ccf = cc.to(torch.float32)
+        logits = (torch.einsum("bshr,btr->bhst", q_lat.to(torch.float32),
+                               ccf)
+                  + torch.einsum("bshk,btk->bhst",
+                                 q_rope.to(torch.float32),
+                                 cr.to(torch.float32)))
+        logits = logits / np.sqrt(dn + dr)
+        qpos = length + torch.arange(S, device=x.device)[:, None]
+        valid = torch.arange(Sc, device=x.device)[None, :] <= qpos
+        logits = torch.where(valid[None, None], logits, -1e30)
+        w = torch.softmax(logits, dim=-1)
+        lat_out = torch.einsum("bhst,btr->bshr", w, ccf)
+        out = torch.einsum("bshr,rhv->bshv", lat_out.to(x.dtype),
+                           p["wv_b"])
+        new_cache = {"ckv": cc, "krope": cr, "length": length + S}
+    out = torch.einsum("bshv,hvd->bsd", out, p["wo"])
+    return out, new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,10 @@
-"""Decoder stacks — the port of ``repro.models.transformer``, dense half.
+"""Decoder stacks for every configured architecture — the port of
+``repro.models.transformer``.
 
 Layer layout, the reference's: an optional *prefix* of unrolled layers
-followed by *periods*, the repeating structural unit.  Stacked params
+(DeepSeek's first dense layers) followed by *periods*, the repeating
+structural unit (1 for homogeneous stacks, 8 for Jamba's [7 mamba + 1
+attn] interleave with alternating MoE).  Stacked params
 keep a leading ``n_periods`` axis (``params["stack"][pos]`` leaves are
 ``(n_periods, ...)``) and period ``c`` applies ``leaf[c]``.  The layout
 matters beyond checkpoints: Adafactor factors any leaf whose last two
@@ -11,10 +14,12 @@ moment factored across layers, as in the reference.
 Three entry points: ``forward_train`` (full-seq loss), ``prefill``
 (last logits + caches), ``decode_step`` (one token against caches);
 params are the reference's nested dict of tensors or a
-:class:`Transformer` module holding them.  This slice runs dense GQA/MHA
-stacks with SwiGLU or gelu MLPs and the ``audio_stub``/``vlm_stub``
-frontends; a config with MoE, SSM or MLA layers, or with ``mtp_depth``,
-raises ``NotImplementedError`` (ROADMAP queue 1, item 8).
+:class:`Transformer` module holding them.  A layer's mixer is GQA/MHA
+attention, MLA or a Mamba2 SSD block, its FFN an MLP or a MoE (whose
+aux loss sums through the stack); DeepSeek-V3's multi-token prediction
+adds the ``mtp`` subtree and metric.  Caches are ``{"k", "v"}`` (GQA),
+``{"ckv", "krope"}`` (MLA, with ``length``) or ``{"ssm", "conv"}``
+(SSD, no length); decode writes all of them in place.
 """
 from __future__ import annotations
 
@@ -28,23 +33,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree as T
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as Ls
+from repro_torch.models import moe as Moe
+from repro_torch.models import ssm as Ssm
 from repro_torch.models.config import ModelConfig
-
-
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise for what this slice does not run (no dense stand-in)."""
-    gaps = []
-    if cfg.attn_type == "mla":
-        gaps.append("MLA attention")
-    if cfg.is_moe:
-        gaps.append("MoE layers")
-    if cfg.ssm_state or cfg.attn_type == "none" or cfg.is_hybrid:
-        gaps.append("Mamba2 SSD layers")
-    if cfg.mtp_depth:
-        gaps.append("multi-token prediction")
-    if gaps:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(gaps)} "
-                                  f"{Ls.NEXT_SLICE}")
 
 
 # ---------------------------------------------------------------------------
@@ -81,7 +72,6 @@ class Transformer(torch.nn.Module):
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
-        check_dense(cfg)
         self.cfg = cfg
         self.params = _Node(params)
 
@@ -113,13 +103,28 @@ def batch_to(batch: dict, device) -> dict:
 # Init
 # ---------------------------------------------------------------------------
 def _init_layer(cfg: ModelConfig, i: int, gen: torch.Generator, dtype):
+    """Layer ``i``: its mixer (``attn``: GQA or MLA; or ``ssm``), then its
+    FFN (``moe`` or ``mlp``, or none), drawn in that order."""
     dev = gen.device
-    p: dict[str, Any] = {"ln1": Ls.init_rmsnorm(cfg.d_model, dtype, dev),
-                         "attn": Ls.init_attention(cfg, gen, dtype)}
-    if cfg.d_ff > 0:
+    p: dict[str, Any] = {"ln1": Ls.init_rmsnorm(cfg.d_model, dtype, dev)}
+    if cfg.layer_kind(i) == "attn":
+        init = Ls.init_mla if cfg.attn_type == "mla" else Ls.init_attention
+        p["attn"] = init(cfg, gen, dtype)
+    else:
+        p["ssm"] = Ssm.init_ssm(cfg, gen, dtype)
+    if cfg.layer_is_moe(i):
+        p["ln2"] = Ls.init_rmsnorm(cfg.d_model, dtype, dev)
+        p["moe"] = Moe.init_moe(cfg, gen, dtype)
+    elif cfg.d_ff > 0:
         p["ln2"] = Ls.init_rmsnorm(cfg.d_model, dtype, dev)
         p["mlp"] = Ls.init_mlp(cfg, gen, dtype)
     return p
+
+
+def _stacked(*xs):
+    """The periods' leaves stacked on a new leading axis (one period: a
+    view, so a full-width leaf is not copied)."""
+    return torch.stack(xs) if len(xs) > 1 else xs[0][None]
 
 
 def _stack_info(cfg: ModelConfig):
@@ -135,8 +140,8 @@ def init_params(cfg: ModelConfig, generator=0, dtype=torch.float32,
     """The reference's params tree with the reference's shapes and
     scales, drawn from ``generator`` (a ``torch.Generator``, or a seed
     for one on ``device``); the values differ from jax's PRNG.  The
-    tensors end on ``device`` (``cuda`` when None)."""
-    check_dense(cfg)
+    tensors end on ``device`` (``cuda`` when None).  A leaf of more than
+    ``layers.INIT_SLAB_VALUES`` values is drawn in slabs."""
     dev = resolve_device(device)
     gen = generator
     if not isinstance(gen, torch.Generator):
@@ -156,8 +161,15 @@ def init_params(cfg: ModelConfig, generator=0, dtype=torch.float32,
     for pos in range(period):
         per = [_init_layer(cfg, prefix + c * period + pos, gen, dtype)
                for c in range(n_periods)]
-        stack.append(T.map_structure(lambda *xs: torch.stack(xs), *per))
+        stack.append(T.map_structure(_stacked, *per))
     params["stack"] = stack
+    if cfg.mtp_depth:
+        params["mtp"] = {
+            "proj": Ls._dense_init(gen, (2 * cfg.d_model, cfg.d_model),
+                                   2 * cfg.d_model, dtype),
+            "ln": Ls.init_rmsnorm(cfg.d_model, dtype, gen.device),
+            "layer": _init_layer(cfg, cfg.num_layers - 1, gen, dtype),
+        }
     return T.map_structure(lambda x: x.to(dev), params)
 
 
@@ -165,15 +177,32 @@ def init_params(cfg: ModelConfig, generator=0, dtype=torch.float32,
 # Layer application
 # ---------------------------------------------------------------------------
 def _apply_layer(cfg: ModelConfig, p, x, positions, cache):
-    """cache: None (train / prefill collects) | dict (decode consumes)."""
+    """cache: None (train / prefill collects) | dict (decode consumes).
+    Returns (x, new_cache, aux): aux is the MoE aux loss, None for a
+    layer without MoE."""
     h = Ls.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    mix, new_cache = Ls.attention(cfg, p["attn"], h, positions,
-                                  kv_cache=cache)
+    if "ssm" in p:
+        mix, new_cache = Ssm.ssm_block(cfg, p["ssm"], h, state=cache)
+    elif cfg.attn_type == "mla":
+        mix, new_cache = Ls.mla_attention(cfg, p["attn"], h, positions,
+                                          kv_cache=cache)
+    else:
+        mix, new_cache = Ls.attention(cfg, p["attn"], h, positions,
+                                      kv_cache=cache)
     x = x + mix
-    if "mlp" in p:
+    aux = None
+    if "moe" in p:
+        h2 = Ls.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        f, aux = Moe.moe_ffn(cfg, p["moe"], h2)
+        x = x + f
+    elif "mlp" in p:
         h2 = Ls.rmsnorm(p["ln2"], x, cfg.norm_eps)
         x = x + Ls.mlp(cfg, p["mlp"], h2)
-    return x, new_cache
+    return x, new_cache, aux
+
+
+def _add_aux(total, aux):
+    return total if aux is None else total + aux
 
 
 def _period(tree, c: int):
@@ -186,41 +215,59 @@ def _run_stack(cfg: ModelConfig, params, x, positions, caches,
     """Prefix layers, then the periods in order.
 
     Modes: train (caches=None, collect_cache=False; ``remat`` recomputes
-    each period in the backward, ``torch.utils.checkpoint``), prefill
-    (caches=None, collect_cache=True -> caches emitted, stacked per
-    period position), decode (caches given -> updated).  Returns (x, aux,
-    caches); aux is 0 (no MoE in this slice)."""
+    each period in the backward, ``torch.utils.checkpoint``, and inside a
+    period of more than one layer each layer too, as the reference nests
+    them: a period-8 backward then holds one SSD layer's intermediates,
+    not seven), prefill (caches=None, collect_cache=True -> caches
+    emitted, stacked per period position), decode (caches given ->
+    updated in place).  Returns (x, aux, caches); aux sums the MoE
+    layers' aux losses in layer order."""
     prefix, period, n_periods = _stack_info(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_prefix = []
     for i, p in enumerate(params["prefix"]):
         c = caches["prefix"][i] if caches else None
-        x, nc = _apply_layer(cfg, p, x, positions, c)
+        x, nc, a = _apply_layer(cfg, p, x, positions, c)
+        aux = _add_aux(aux, a)
         new_prefix.append(nc)
 
-    def period_body(h, c, stacked_c):
+    def one_layer(p_, h):
+        h, _, a = _apply_layer(cfg, p_, h, positions, None)
+        return h, a
+
+    def period_body(h, auxc, c, stacked_c, layer_remat=False):
         new_cs = []
         for pos in range(period):
             cc = _period(stacked_c[pos], c) if stacked_c is not None else None
-            h, nc = _apply_layer(cfg, _period(params["stack"][pos], c), h,
-                                 positions, cc)
+            p_ = _period(params["stack"][pos], c)
+            if layer_remat:
+                h, a = checkpoint(one_layer, p_, h, use_reentrant=False)
+                nc = None
+            else:
+                h, nc, a = _apply_layer(cfg, p_, h, positions, cc)
+            auxc = _add_aux(auxc, a)
             new_cs.append(nc)
-        return h, new_cs
+        return h, auxc, new_cs
 
+    train = caches is None and not collect_cache
     per_period = []
     for c in range(n_periods):
-        if caches is None and not collect_cache and remat:
-            x = checkpoint(lambda h, _c=c: period_body(h, _c, None)[0], x,
-                           use_reentrant=False)
+        if train and remat:
+            x, aux = checkpoint(
+                lambda h, a, _c=c: period_body(h, a, _c, None,
+                                               period > 1)[:2],
+                x, aux, use_reentrant=False)
             continue
-        x, cs = period_body(x, c, caches["stack"] if caches else None)
+        x, aux, cs = period_body(x, aux, c,
+                                 caches["stack"] if caches else None)
         per_period.append(cs)
 
     new_stack = None
-    if caches and n_periods:         # decode: k/v were written in place
-        new_stack = [dict(caches["stack"][pos], length=torch.stack(
+    if caches and n_periods:         # decode: caches were written in place
+        new_stack = [dict(sc, length=torch.stack(
             [cs[pos]["length"] for cs in per_period]))
-            for pos in range(period)]
+            if "length" in sc else sc
+            for pos, sc in enumerate(caches["stack"])]
     elif collect_cache and n_periods:
         new_stack = [T.map_structure(lambda *xs: torch.stack(xs),
                                      *[cs[pos] for cs in per_period])
@@ -313,8 +360,9 @@ def forward_train(cfg: ModelConfig, params, batch, *, remat: bool = True,
                   loss_chunk: Optional[int] = None):
     """batch: tokens/embeds (+patches) and labels, tensors on the params'
     device.  Returns (loss, metrics): next-token loss on ``labels`` when
-    given, else teacher forcing on ``tokens[1:]``."""
-    check_dense(cfg)
+    given, else teacher forcing on ``tokens[1:]``; metrics ``xent``,
+    ``aux`` (the MoE aux loss), ``mtp`` (with ``mtp_depth``) and
+    ``loss`` = xent + aux + mtp_loss_weight * mtp."""
     params = as_tree(params)
     x, _vis_mask = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
@@ -332,15 +380,38 @@ def forward_train(cfg: ModelConfig, params, batch, *, remat: bool = True,
     else:
         loss = xent_from_hidden(cfg, params, x[:, :-1], labels[:, 1:],
                                 chunk=loss_chunk)
+    metrics = {"xent": loss, "aux": aux}
     total = loss + aux
-    return total, {"xent": loss, "aux": aux, "loss": total}
+    if cfg.mtp_depth:
+        mtp_loss = _mtp_loss(cfg, params, x, batch, positions)
+        metrics["mtp"] = mtp_loss
+        total = total + cfg.mtp_loss_weight * mtp_loss
+    metrics["loss"] = total
+    return total, metrics
+
+
+def _mtp_loss(cfg: ModelConfig, params, h_final, batch, positions):
+    """DeepSeek-V3 multi-token prediction (depth 1): combine the trunk's
+    final hidden state at t with the embedding of token t+1 to predict
+    t+2.  0 for a config with a frontend."""
+    tokens = batch.get("labels", batch.get("tokens"))
+    if tokens is None or cfg.frontend != "none":
+        return torch.zeros((), dtype=torch.float32, device=h_final.device)
+    p = params["mtp"]
+    emb_next = F.embedding(tokens[:, 1:].to(torch.int64), params["embed"])
+    h = h_final[:, :-1]
+    comb = torch.cat([Ls.rmsnorm(p["ln"], h, cfg.norm_eps), emb_next],
+                     dim=-1)
+    x = comb @ p["proj"]
+    x, _, _ = _apply_layer(cfg, p["layer"], x, positions[:, :-1], None)
+    logits = _logits(cfg, params, x[:, :-1])
+    return softmax_xent(logits, tokens[:, 2:])
 
 
 @torch.inference_mode()
 def prefill(cfg: ModelConfig, params, batch, *, max_len: Optional[int] = None):
     """Full-sequence forward that also returns decode caches (capacity
     ``max_len`` >= S, padded to it).  Runs under ``inference_mode``."""
-    check_dense(cfg)
     params = as_tree(params)
     x, _ = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
@@ -353,39 +424,42 @@ def prefill(cfg: ModelConfig, params, batch, *, max_len: Optional[int] = None):
     return logits, caches
 
 
+def _is_attn_cache(c) -> bool:
+    return "k" in c or "ckv" in c
+
+
 def _pad_caches(cfg: ModelConfig, caches, cur_len: int, max_len: int):
-    """Grow KV caches to capacity along the sequence axis (axis 1 for a
-    prefix layer's, axis 2 for the stacked ones) and attach lengths: a
-    0-d int32 per prefix layer, an (n_periods,) vector in the stack."""
+    """Grow the attention caches (GQA ``k``/``v``, MLA ``ckv``/``krope``)
+    to capacity along the sequence axis (axis 1 for a prefix layer's,
+    axis 2 for the stacked ones) and attach lengths: a 0-d int32 per
+    prefix layer, an (n_periods,) vector in the stack.  SSM caches stay
+    as they are, without a length."""
     def pad(x, axis):
         if x.ndim > axis and x.shape[axis] == cur_len:
             widths = [0, 0] * (x.ndim - axis - 1) + [0, max_len - cur_len]
             return F.pad(x, widths)
         return x
 
-    out = {"prefix": [], "stack": []}
-    for c in caches["prefix"]:
-        c = {k: pad(v, 1) for k, v in c.items()}
-        c["length"] = torch.tensor(cur_len, dtype=torch.int32,
-                                   device=c["k"].device)
-        out["prefix"].append(c)
+    def grown(c, axis, length_shape):
+        if not _is_attn_cache(c):
+            return c
+        c = {k: pad(v, axis) for k, v in c.items()}
+        c["length"] = torch.full(length_shape, cur_len, dtype=torch.int32,
+                                 device=next(iter(c.values())).device)
+        return c
+
     n_periods = _stack_info(cfg)[2]
-    for c in caches["stack"]:
-        cc = {k: pad(v, 2) for k, v in c.items()}
-        cc["length"] = torch.full((n_periods,), cur_len, dtype=torch.int32,
-                                  device=cc["k"].device)
-        out["stack"].append(cc)
-    return out
+    return {"prefix": [grown(c, 1, ()) for c in caches["prefix"]],
+            "stack": [grown(c, 2, (n_periods,)) for c in caches["stack"]]}
 
 
 @torch.inference_mode()
 def decode_step(cfg: ModelConfig, params, tokens, caches, *, embeds=None):
     """One decode step.  tokens: (B, 1) int (or embeds (B,1,d) for
     audio_stub).  Returns (logits (B,1,V), new_caches).  Runs under
-    ``inference_mode`` and writes the step's keys and values INTO the
-    given caches' ``k``/``v`` tensors (the returned caches hold the same
-    tensors and new lengths), so a cache passed in is consumed."""
-    check_dense(cfg)
+    ``inference_mode`` and writes the step INTO the given caches (keys
+    and values, MLA latents, SSM states; the returned caches hold the
+    same tensors and new lengths), so a cache passed in is consumed."""
     params = as_tree(params)
     if cfg.frontend == "audio_stub":
         x = embeds
@@ -412,24 +486,29 @@ def _cache_length(caches, device):
 
 def init_decode_caches(cfg: ModelConfig, batch_size: int, max_len: int,
                        dtype=torch.float32, device: DeviceLike = None):
-    """Fresh empty caches of capacity ``max_len`` (length 0)."""
-    check_dense(cfg)
+    """Fresh empty caches of capacity ``max_len`` (length 0): GQA
+    ``k``/``v``, MLA ``ckv``/``krope`` or SSM ``ssm`` (fp32) / ``conv``
+    per layer."""
     dev = resolve_device(device)
     prefix, period, n_periods = _stack_info(cfg)
-    shape = (batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
 
-    def attn_cache(lead=()):
-        return {"k": torch.zeros(lead + shape, dtype=dtype, device=dev),
-                "v": torch.zeros(lead + shape, dtype=dtype, device=dev)}
+    def cache(kind, lead=()):
+        def z(*shape, dt=dtype):
+            return torch.zeros(lead + shape, dtype=dt, device=dev)
+        if kind != "attn":
+            return {"ssm": z(batch_size, cfg.ssm_heads, cfg.ssm_headdim,
+                             cfg.ssm_state, dt=torch.float32),
+                    "conv": z(batch_size, cfg.ssm_conv - 1,
+                              cfg.d_inner + 2 * cfg.ssm_state)}
+        if cfg.attn_type == "mla":
+            c = {"ckv": z(batch_size, max_len, cfg.kv_lora_rank),
+                 "krope": z(batch_size, max_len, cfg.rope_head_dim)}
+        else:
+            shape = (batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
+            c = {"k": z(*shape), "v": z(*shape)}
+        c["length"] = torch.zeros(lead, dtype=torch.int32, device=dev)
+        return c
 
-    caches = {"prefix": [], "stack": []}
-    for _ in range(prefix):
-        c = attn_cache()
-        c["length"] = torch.zeros((), dtype=torch.int32, device=dev)
-        caches["prefix"].append(c)
-    for _ in range(period):
-        c = attn_cache((n_periods,))
-        c["length"] = torch.zeros((n_periods,), dtype=torch.int32,
-                                  device=dev)
-        caches["stack"].append(c)
-    return caches
+    return {"prefix": [cache(cfg.layer_kind(i)) for i in range(prefix)],
+            "stack": [cache(cfg.layer_kind(prefix + pos), (n_periods,))
+                      for pos in range(period)]}

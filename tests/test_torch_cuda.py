@@ -826,21 +826,15 @@ def test_dedup_on_the_card_matches_cpu(cuda, kind):
     assert want[-2:].all()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "yi-6b", "qwen1.5-110b",
-                                  "phi3-mini-3.8b", "musicgen-medium",
-                                  "internvl2-26b"])
-def test_dense_model_on_the_card_matches_cpu(cuda, arch):
-    """A reduced dense config: the same weights on the card and the CPU
-    give losses and logits within 5e-3; on the card decode equals
-    teacher forcing within 5e-3, and fp32 matmuls stay full precision."""
+def _reduced_on_card_vs_cpu(cuda, cfg):
+    """The same weights on the card and the CPU give losses and logits
+    within 5e-3; on the card decode equals teacher forcing within 5e-3,
+    and fp32 matmuls stay full precision."""
     from repro_torch import tree as TR
-    from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, synthetic_batch
     from repro_torch.models import transformer as T
     from repro_torch.models.transformer import batch_to
     assert not torch.backends.cuda.matmul.allow_tf32
-    cfg = get_config(arch).reduced()
     p_cpu = T.init_params(cfg, 0, device="cpu")
     p_gpu = TR.map_structure(lambda t: t.to(cuda), p_cpu)
     batch = synthetic_batch(cfg, DataConfig(global_batch=2, seq_len=16), 0)
@@ -876,3 +870,72 @@ def test_dense_model_on_the_card_matches_cpu(cuda, arch):
     off = cfg.num_patches if cfg.frontend == "vlm_stub" else 0
     np.testing.assert_allclose(sg.numpy(), fg.numpy()[:, off + 7:off + 16],
                                rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "yi-6b", "qwen1.5-110b",
+                                  "phi3-mini-3.8b", "musicgen-medium",
+                                  "internvl2-26b"])
+def test_dense_model_on_the_card_matches_cpu(cuda, arch):
+    """A reduced dense config, card against CPU (``_reduced_on_card_vs_cpu``)."""
+    from repro_torch.configs import get_config
+    _reduced_on_card_vs_cpu(cuda, get_config(arch).reduced())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "kimi-k2-1t-a32b",
+                                  "jamba-v0.1-52b", "mamba2-780m"])
+def test_moe_ssm_hybrid_model_on_the_card_matches_cpu(cuda, arch):
+    """A reduced MoE (MLA, MTP), SSD or hybrid config, card against CPU;
+    the MoE ones at capacity 8.0, so decode drops nothing that teacher
+    forcing keeps (as ``tests/test_models.py:72-73``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced()
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=8.0)
+    _reduced_on_card_vs_cpu(cuda, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_ffn_on_the_card_is_bit_reproducible(cuda, dtype):
+    """``moe_ffn`` at the published capacity 1.25 on an input that drops
+    assignments: two runs on the card give the same output, aux and
+    gradients (x and every expert leaf) bit for bit, since the dispatch
+    writes each real slot once and the combine and the backward are
+    gathers; in fp32 the card agrees with the CPU."""
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    dt = getattr(torch, dtype)
+    cfg = get_config("deepseek-v3-671b").reduced()
+    g = torch.Generator().manual_seed(0)
+    p_cpu = M.init_moe(cfg, g, dt)
+    x_cpu = (torch.randn((4, 64, cfg.d_model), generator=g)
+             + 2.0 * torch.randn((cfg.d_model,), generator=g)).to(dt)
+    _, slots, C, _ = M.route(cfg, p_cpu, x_cpu.reshape(-1, cfg.d_model))
+    assert int((slots == cfg.num_experts * C).sum()) > 0      # it drops
+
+    def run(p, x):
+        leaves = [t.detach().requires_grad_(True) for t in TR.leaves(p)]
+        xg = x.detach().requires_grad_(True)
+        out, aux = M.moe_ffn(cfg, TR.unflatten_like(p, leaves), xg)
+        w = torch.linspace(-1, 1, out.numel(), device=out.device,
+                           dtype=torch.float32).reshape(out.shape)
+        grads = torch.autograd.grad((out.float() * w).sum() + aux,
+                                    [xg] + leaves)
+        return [out, aux] + list(grads)
+
+    p_gpu = TR.map_structure(lambda t: t.to(cuda), p_cpu)
+    first = run(p_gpu, x_cpu.to(cuda))
+    second = run(p_gpu, x_cpu.to(cuda))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    if dtype == "float32":
+        want = run(p_cpu, x_cpu)
+        np.testing.assert_allclose(first[0].detach().cpu().numpy(),
+                                   want[0].detach().numpy(), atol=1e-4,
+                                   rtol=0)
+        np.testing.assert_allclose(float(first[1].detach()),
+                                   float(want[1].detach()), rtol=1e-5)

@@ -28,8 +28,6 @@ from repro_torch.serving import ServeConfig, greedy_generate  # noqa: E402
 CPU = "cpu"
 DENSE = ["qwen3-0.6b", "yi-6b", "qwen1.5-110b", "phi3-mini-3.8b",
          "musicgen-medium", "internvl2-26b"]
-UNPORTED = ["deepseek-v3-671b", "kimi-k2-1t-a32b", "jamba-v0.1-52b",
-            "mamba2-780m"]
 
 
 @pytest.fixture(scope="module")
@@ -262,33 +260,3 @@ def test_init_params_shapes_and_scales():
         again = T.init_params(pc, torch.Generator().manual_seed(7),
                               device=CPU)
         assert torch.equal(p["embed"], again["embed"])
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_configs_raise(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_params(cfg, 0, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.forward_train(cfg, {}, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_decode_caches(cfg, 1, 8, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transformer(cfg, {})
-
-
-def test_unported_layers_raise():
-    from repro_torch.models import moe, ssm
-    cfg = get_config("deepseek-v3-671b").reduced()
-    for fn in (lambda: L.init_mla(cfg, None, torch.float32),
-               lambda: L.mla_attention(cfg, {}, None, None),
-               lambda: moe.init_moe(cfg, None, torch.float32),
-               lambda: moe.moe_ffn(cfg, {}, None),
-               lambda: ssm.init_ssm(cfg, None, torch.float32),
-               lambda: ssm.ssm_block(cfg, {}, None),
-               lambda: ssm.ssd_chunked(*[None] * 5, chunk=8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
-    with pytest.raises(NotImplementedError, match="MTP|multi-token"):
-        T.check_dense(dataclasses.replace(get_config("qwen3-0.6b"),
-                                          mtp_depth=1))

@@ -1,0 +1,316 @@
+"""MoE, MLA and MTP: the port (``repro_torch.models``, CPU) against
+``repro.models`` for deepseek-v3 (MLA, MoE, MTP) and kimi-k2 (GQA, MoE)
+``reduced()``, from the reference's ``init_params`` carried across by
+``params_from_reference``.
+
+Tolerances (``tests/test_torch_models.py``'s): loss and metrics
+(``xent``, ``aux``, ``mtp``, ``loss``) rtol 1e-5, logits, layer outputs
+and caches atol 1e-4, greedy tokens equal, decode within 5e-3 of
+teacher forcing.  Capacity dropping depends on the token count, so
+decode (T = B) drops what a full forward (T = B * S) does not: the
+teacher-forcing check runs at capacity factor 8.0, as the reference's
+own does (``tests/test_models.py:72-73``); at the published 1.25 the port
+is held to the reference at equal T."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_config as jget  # noqa: E402
+from repro.models import layers as JL, moe as JM  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
+from repro.serving import greedy_generate as jgreedy  # noqa: E402
+from _torch_lm import (CPU, assert_trees_close, full_logits_port,  # noqa: E402
+                       full_logits_ref, np_tree, tensors, tokens)
+from repro_torch import tree as TR  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import Transformer  # noqa: E402
+from repro_torch.models import layers as L, moe as M  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.convert import (params_from_reference,  # noqa: E402
+                                        params_to_reference)
+from repro_torch.serving import ServeConfig, greedy_generate  # noqa: E402
+
+ARCHS = ["deepseek-v3-671b", "kimi-k2-1t-a32b"]
+
+
+@pytest.fixture(scope="module")
+def models():
+    """arch -> (reference cfg, port cfg, reference params, port model)."""
+    out = {}
+    for i, arch in enumerate(ARCHS):
+        jc, pc = jget(arch).reduced(), get_config(arch).reduced()
+        jp = JT.init_params(jc, jax.random.PRNGKey(10 + i))
+        out[arch] = (jc, pc, jp, params_from_reference(pc, np_tree(jp),
+                                                       device=CPU))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# moe_ffn and MLA alone
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch,act", [("deepseek-v3-671b", "swiglu"),
+                                      ("jamba-v0.1-52b", "swiglu"),
+                                      ("deepseek-v3-671b", "gelu")])
+def test_moe_ffn_with_drops_matches_reference(arch, act):
+    """At the published capacity factor 1.25, on an input whose routing
+    overflows an expert: output and aux equal the reference's."""
+    jc = dataclasses.replace(jget(arch).reduced(), mlp_act=act)
+    pc = dataclasses.replace(get_config(arch).reduced(), mlp_act=act)
+    assert jc.moe_capacity_factor == 1.25
+    jp = JM.init_moe(jc, jax.random.PRNGKey(3), jnp.float32)
+    rng = np.random.default_rng(4)
+    # a shared offset skews the routing, so some experts overflow
+    x = (rng.normal(size=(2, 16, jc.d_model))
+         + 2.0 * rng.normal(size=(jc.d_model,))).astype(np.float32)
+    jo, jaux = JM.moe_ffn(jc, jp, jnp.asarray(x))
+    po, paux = M.moe_ffn(pc, tensors(jp), torch.from_numpy(x))
+    # the reference's own routing drops assignments on this input
+    T_ = x.shape[0] * x.shape[1]
+    probs = jax.nn.softmax(jnp.asarray(x).reshape(T_, -1) @ jp["router"])
+    _, idx = jax.lax.top_k(probs, jc.experts_per_token)
+    C = M.capacity(pc, T_)
+    per_expert = np.bincount(np.asarray(idx).ravel(),
+                             minlength=jc.num_experts)
+    dropped = int(np.maximum(per_expert - C, 0).sum())
+    assert dropped > 0
+    _, slots, C2, _ = M.route(pc, tensors(jp), torch.from_numpy(
+        x).reshape(T_, -1))
+    assert C2 == C
+    assert int((slots == jc.num_experts * C).sum()) == dropped
+    np.testing.assert_allclose(po.numpy(), np.asarray(jo), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(float(paux), float(jaux), rtol=1e-5)
+
+
+@pytest.mark.parametrize("T_,k,E,cf", [(32, 2, 8, 1.25), (1, 8, 256, 1.25),
+                                       (4096, 8, 256, 1.25),
+                                       (7, 2, 16, 8.0), (4096, 8, 256, 8.0)])
+def test_capacity_matches_reference_formula(T_, k, E, cf):
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"),
+                              experts_per_token=k, num_experts=E,
+                              moe_capacity_factor=cf)
+    C = int(np.ceil(T_ * k / E * cf))
+    assert M.capacity(cfg, T_) == max(4, -(-C // 4) * 4)
+
+
+@pytest.mark.parametrize("q_lora", [True, False])
+def test_mla_prefill_and_absorbed_decode_match_reference(q_lora):
+    """The materialized path (prefill) and the absorbed path (decode over
+    the latent cache, written in place) against the reference's."""
+    jc = jget("deepseek-v3-671b").reduced()
+    if not q_lora:
+        jc = dataclasses.replace(jc, q_lora_rank=0)
+    pc = get_config("deepseek-v3-671b").reduced()
+    pc = dataclasses.replace(pc, q_lora_rank=jc.q_lora_rank)
+    jp = JL.init_mla(jc, jax.random.PRNGKey(5), jnp.float32)
+    assert ("wq_a" in jp) == q_lora
+    pp = tensors(jp)
+    B, S0, S, cap = 2, 6, 10, 12
+    x = np.random.default_rng(6).normal(size=(B, S, jc.d_model)
+                                        ).astype(np.float32)
+    pos = np.arange(S0, dtype=np.int32)[None]
+    jo, jcache = JL.mla_attention(jc, jp, jnp.asarray(x[:, :S0]),
+                                  jnp.asarray(pos))
+    with torch.no_grad():
+        po, pcache = L.mla_attention(pc, pp, torch.from_numpy(x[:, :S0]),
+                                     torch.from_numpy(pos))
+    np.testing.assert_allclose(po.numpy(), np.asarray(jo), atol=1e-4, rtol=0)
+    assert_trees_close(jcache, pcache)
+    pad = lambda a: np.pad(np.asarray(a), ((0, 0), (0, cap - S0), (0, 0)))
+    jcache = {"ckv": jnp.asarray(pad(jcache["ckv"])),
+              "krope": jnp.asarray(pad(jcache["krope"])),
+              "length": jnp.int32(S0)}
+    pcache = {"ckv": torch.from_numpy(pad(pcache["ckv"])),
+              "krope": torch.from_numpy(pad(pcache["krope"])),
+              "length": torch.tensor(S0, dtype=torch.int32)}
+    ckv = pcache["ckv"]
+    for t in range(S0, S):
+        p1 = np.full((1, 1), t, np.int32)
+        jo, jcache = JL.mla_attention(jc, jp, jnp.asarray(x[:, t:t + 1]),
+                                      jnp.asarray(p1), kv_cache=jcache)
+        with torch.no_grad():
+            po, pcache = L.mla_attention(pc, pp,
+                                         torch.from_numpy(x[:, t:t + 1]),
+                                         torch.from_numpy(p1),
+                                         kv_cache=pcache)
+        np.testing.assert_allclose(po.numpy(), np.asarray(jo), atol=1e-4,
+                                   rtol=0)
+        assert pcache["ckv"] is ckv            # written in place
+        assert int(pcache["length"]) == int(jcache["length"]) == t + 1
+    assert_trees_close(jcache, pcache)
+
+
+# ---------------------------------------------------------------------------
+# The stacks
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ARCHS)
+def test_weights_round_trip(models, arch):
+    jc, pc, jp, model = models[arch]
+    assert isinstance(model, Transformer)
+    back = params_to_reference(pc, model)
+    ja = jax.tree_util.tree_flatten_with_path(jp)[0]
+    pa = TR.flatten_with_path(back)
+    assert [jax.tree_util.keystr(p) for p, _ in ja] == [p for p, _ in pa]
+    for (_, a), (_, b) in zip(ja, pa):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a), b)
+    if jc.mtp_depth:
+        assert "['mtp']['layer']['moe']['wi']" in [p for p, _ in pa]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_train_matches_reference(models, arch):
+    jc, pc, jp, model = models[arch]
+    toks = tokens(jc, 2, 16, seed=1)
+    jl, jm = JT.forward_train(jc, jp, {"tokens": jnp.asarray(toks)},
+                              remat=False)
+    with torch.no_grad():
+        pl, pm = T.forward_train(pc, model, {"tokens": torch.from_numpy(
+            toks)}, remat=False)
+    assert sorted(pm) == sorted(jm)
+    assert ("mtp" in pm) == bool(jc.mtp_depth)
+    assert float(pm["aux"]) > 0
+    for k in jm:
+        np.testing.assert_allclose(float(pm[k]), float(jm[k]), rtol=1e-5,
+                                   atol=1e-7, err_msg=k)
+    np.testing.assert_allclose(full_logits_port(pc, model, toks),
+                               full_logits_ref(jc, jp, toks), atol=1e-4,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_match_reference(models, arch):
+    """At the published capacity 1.25: prefill, each decode step and the
+    caches equal the reference's (equal T on both sides)."""
+    jc, pc, jp, model = models[arch]
+    toks = tokens(jc, 2, 12, seed=42)
+    S0 = 6
+    jlg, jcache = JT.prefill(jc, jp, {"tokens": jnp.asarray(toks[:, :S0])},
+                             max_len=14)
+    plg, pcache = T.prefill(pc, model, {"tokens": torch.from_numpy(
+        toks[:, :S0])}, max_len=14)
+    np.testing.assert_allclose(plg.numpy(), np.asarray(jlg), atol=1e-4,
+                               rtol=0)
+    for t in range(S0, 12):
+        tok = toks[:, t:t + 1]
+        jlg, jcache = JT.decode_step(jc, jp, jnp.asarray(tok), jcache)
+        plg, pcache = T.decode_step(pc, model, torch.from_numpy(tok), pcache)
+        np.testing.assert_allclose(plg.numpy(), np.asarray(jlg), atol=1e-4,
+                                   rtol=0)
+    assert_trees_close(jcache, pcache)
+    if jc.attn_type == "mla":
+        assert sorted(pcache["prefix"][0]) == ["ckv", "krope", "length"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_matches_teacher_forcing_at_capacity_8(models, arch):
+    """Capacity 8.0 drops nothing at these sizes, so decode equals the
+    full forward within 5e-3 (the reference's test does the same,
+    ``tests/test_models.py:72-73``)."""
+    _, pc, _, model = models[arch]
+    pc = dataclasses.replace(pc, moe_capacity_factor=8.0)
+    toks = tokens(pc, 2, 16, seed=7)
+    full = full_logits_port(pc, model, toks)
+    lg, caches = T.prefill(pc, model, {"tokens": torch.from_numpy(
+        toks[:, :8])}, max_len=20)
+    np.testing.assert_allclose(lg.numpy()[:, 0], full[:, 7], rtol=5e-3,
+                               atol=5e-3)
+    for t in range(8, 16):
+        lg, caches = T.decode_step(pc, model,
+                                   torch.from_numpy(toks[:, t:t + 1]),
+                                   caches)
+        np.testing.assert_allclose(lg.numpy()[:, 0], full[:, t],
+                                   rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_greedy_generate_tokens_equal(models, arch):
+    jc, pc, jp, model = models[arch]
+    toks = tokens(jc, 2, 8, seed=5)
+    want = np.asarray(jgreedy(jc, jp, {"tokens": jnp.asarray(toks)}, 5))
+    got = greedy_generate(pc, model, {"tokens": toks}, 5,
+                          ServeConfig(max_len=32))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_init_params_shapes_match_reference():
+    """The port's own init: the reference's tree (``mtp`` included),
+    shapes and dtypes, in bf16 too (the router and the SSM's A_log /
+    dt_bias / D stay fp32, as in the reference)."""
+    for arch in ARCHS + ["jamba-v0.1-52b", "mamba2-780m"]:
+        jc, pc = jget(arch).reduced(), get_config(arch).reduced()
+        shapes = jax.eval_shape(lambda: JT.init_params(
+            jc, jax.random.PRNGKey(0), jnp.bfloat16))
+        p = T.init_params(pc, 7, dtype=torch.bfloat16, device=CPU)
+        ja = jax.tree_util.tree_flatten_with_path(shapes)[0]
+        pa = TR.flatten_with_path(p)
+        assert [jax.tree_util.keystr(k) for k, _ in ja] == [k for k, _ in pa]
+        for (_, a), (_, b) in zip(ja, pa):
+            assert tuple(a.shape) == tuple(b.shape)
+            assert str(a.dtype) == str(b.dtype).replace("torch.", "")
+
+
+def test_slab_drawn_init_is_seeded(monkeypatch):
+    """A leaf above ``INIT_SLAB_VALUES`` is drawn in slabs: the same seed
+    gives the same values, with the leaf's shape, dtype and scale."""
+    monkeypatch.setattr(L, "INIT_SLAB_VALUES", 1000)
+    a = L._dense_init(torch.Generator().manual_seed(3), (9, 16, 32), 16,
+                      torch.bfloat16)
+    b = L._dense_init(torch.Generator().manual_seed(3), (9, 16, 32), 16,
+                      torch.bfloat16)
+    assert a.dtype == torch.bfloat16 and tuple(a.shape) == (9, 16, 32)
+    assert torch.equal(a, b)
+    assert abs(float(a.float().std()) - 0.25) < 0.02
+    assert not torch.equal(a[0], a[1])
+
+
+def test_bf16_decode_vs_teacher_forcing_is_the_references():
+    """In bf16 the reference's own MLA decode (absorbed, over the latent
+    cache) differs from its teacher forcing (materialized) by more than
+    5e-2 on some tokens, so no faithful port holds decode to 5e-2 in
+    bf16; the port's differences are of the same size.  deepseek-v3's
+    layout (3 dense layers, then MoE) at reduced widths, capacity 8.0,
+    the reference's bf16 weights in both; per token the largest logit
+    difference over 16 decoded steps of 4 prompts of 64."""
+    cfg = dataclasses.replace(jget(ARCHS[0]).reduced(), num_layers=4,
+                              first_dense_layers=3, moe_capacity_factor=8.0)
+    pc = dataclasses.replace(get_config(ARCHS[0]).reduced(), num_layers=4,
+                             first_dense_layers=3, moe_capacity_factor=8.0)
+    jp = JT.init_params(cfg, jax.random.PRNGKey(0), jnp.bfloat16)
+    pp = params_from_reference(pc, np_tree(jp), device=CPU)
+    toks = tokens(cfg, 4, 80, seed=0)
+    S0 = 64
+
+    def per_token(mod, params, prefill, decode, full):
+        lg, c = prefill(cfg if mod is JT else pc, params, toks[:, :S0])
+        steps = [lg[:, 0]]
+        for t in range(S0, 80):
+            lg, c = decode(cfg if mod is JT else pc, params,
+                           toks[:, t:t + 1], c)
+            steps.append(lg[:, 0])
+        steps = [np.asarray(s, np.float32) if mod is JT
+                 else s.float().numpy() for s in steps]
+        return np.abs(np.stack(steps, 1) - full[:, S0 - 1:]).max(-1)
+
+    jfull = full_logits_ref(cfg, jp, toks).astype(np.float32)
+    jpre = jax.jit(lambda p, t: JT.prefill(cfg, p, {"tokens": t},
+                                           max_len=96))
+    jdec = jax.jit(lambda p, t, ca: JT.decode_step(cfg, p, t, ca))
+    ref = per_token(JT, jp, lambda c, p, t: jpre(p, jnp.asarray(t)),
+                    lambda c, p, t, ca: jdec(p, jnp.asarray(t), ca), jfull)
+    pfull = full_logits_port(pc, pp, toks, torch.float32)
+    port = per_token(
+        T, pp,
+        lambda c, p, t: T.prefill(c, p, {"tokens": torch.from_numpy(t)},
+                                  max_len=96),
+        lambda c, p, t, ca: T.decode_step(c, p, torch.from_numpy(t), ca),
+        pfull)
+    print(f"bf16 decode vs teacher forcing, per token: reference max "
+          f"{ref.max():.4g} median {np.median(ref):.4g}; port max "
+          f"{port.max():.4g} median {np.median(port):.4g}")
+    assert ref.max() > 5e-2                  # the reference breaches 5e-2
+    assert np.median(port) <= 2 * np.median(ref) + 1e-2
