@@ -162,7 +162,13 @@ through the public entry points at chromosome scale:
                  ``[lm:archs]``: all ten configs reduced, card against
                  CPU within 5e-3, decode against teacher forcing (the
                  MoE configs at capacity 8.0), one AdamW step of each
-                 MoE or SSD config;
+                 MoE or SSD config; LM sharding over shards of the card,
+                 single controller: ``[lm:shard:ep]`` (in ``[lm:moe]``)
+                 the fp32 MoE layer expert-parallel over (1, 16) and
+                 (2, 8) shards against the one-device call,
+                 ``[lm:shard:pipe]`` (in ``[lm:train]``) qwen3 as 4 GPipe
+                 stages against the plain stack, ``[lm:shard:compress]``
+                 its 8 row gradients through the int8 exchange;
 21. ``[kernels]`` every kernel's launches on each of the ten paths
                  (serving 1-8, compaction 9-10, persistence 11-12, long 13,
                  client 14, serve 15, staged 16, plane 17, mesh 18,
@@ -274,6 +280,14 @@ LM_MOE_NEW = 32             # [lm:moe]: new tokens (prompts as [lm])
 LM_MOE_TOL = 5e-2           # [lm:moe]: bf16 decode vs teacher forcing
 LM_MOE_NEAR_TIE = 0.1       # [lm:moe]: router-logit gap of a near tie
 LM_SSM_ARCH = "mamba2-780m"      # [lm:ssm]: full width and depth, fp32
+SHARD_EP_TOKENS = (8, 512)  # [lm:shard:ep]: T = 4,096, the EP threshold
+SHARD_EP_CAPACITY = 1.25    # [lm:shard:ep]: the published factor: drops
+SHARD_EP_MESHES = ((1, 16), (2, 8))   # (data, model) shards on the card
+SHARD_EP_TOL = 5e-4         # [lm:shard:ep]: out; aux within 1e-4
+SHARD_AUX_TOL = 1e-4
+SHARD_PIPE_STAGES = 4       # [lm:shard:pipe]: 4 stages x 7 layers,
+SHARD_PIPE_MICRO = 4        # 4 microbatches of 2 x 512
+SHARD_ROUNDS = 16           # [lm:shard:compress]: error-feedback rounds
 
 # Published H100 SXM peaks (NVIDIA data sheet), used for the bounds.
 MEM_BYTES_PER_S = 3.35e12
@@ -937,11 +951,13 @@ def lm_serve(np, torch, cfg, params, tag: str, check, smi, secs,
     secs["serve"] = time.perf_counter() - t_all
 
 
-def lm_train(np, torch, cfg, tag: str, check, smi, secs, dev) -> None:
+def lm_train(np, torch, cfg, tag: str, check, smi, secs, dev,
+             after=None) -> None:
     """LM_STEPS AdamW steps on one LM_TRAIN_BATCH x LM_TRAIN_SEQ batch
     (the loss falls), microbatches 4 against 1 at lr 0, a save at step
     LM_SAVE_AT under ``build/`` and a resume whose losses equal the
-    uninterrupted run's bit for bit."""
+    uninterrupted run's bit for bit.  ``after(params, tokens)`` runs on
+    the resumed params and the batch's tokens on the card."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.data import DataConfig, synthetic_batch
     from repro_torch.training import (OptConfig, make_train_step,
@@ -988,6 +1004,10 @@ def lm_train(np, torch, cfg, tag: str, check, smi, secs, dev) -> None:
             again.append(float(m["loss"]))
         profile_fn(torch, lambda: step_fn(resumed, batch),
                    tag.strip("[]"), "steps=1")
+        if after is not None:
+            t0 = time.perf_counter()
+            after(resumed.params, torch.from_numpy(batch["tokens"]).to(dev))
+            secs["shard"] = time.perf_counter() - t0
         del resumed
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
@@ -1049,7 +1069,11 @@ def lm_phase(np, torch, check, dev, smi) -> dict:
     lm_serve(np, torch, cfg, params, "[lm:serve]", check, smi, secs,
              resident)
     del params
-    lm_train(np, torch, cfg, "[lm:train]", check, smi, secs, dev)
+    lm_train(np, torch, cfg, "[lm:train]", check, smi, secs, dev,
+             after=lambda params, tokens: (
+                 lm_shard_pipe(np, torch, cfg, params, tokens, check, smi),
+                 lm_shard_compress(np, torch, cfg, params, tokens, check,
+                                   smi)))
     secs["total"] = time.perf_counter() - t_all
     print(f"[lm] " + " ".join(f"{k}_seconds={v:.4f}"
                               for k, v in secs.items())
@@ -1306,8 +1330,10 @@ def lm_moe_phase(np, torch, check, dev, smi) -> int:
     hs = torch.randn((LM_PROMPTS, LM_MOE_NEW, cfg.d_model), generator=g,
                      device=dev)
     mf = moe_fp32_check(torch, Moe, cfg8, moe, hs)
-    del moe, hs
-    peak = torch.cuda.max_memory_allocated()
+    del hs
+    peak = lm_shard_ep(np, torch, Moe, cfg, moe, g, check, smi)
+    del moe
+    peak = max(peak, torch.cuda.max_memory_allocated())
     secs = time.perf_counter() - t_all
     print(f"[lm:moe] prompts={LM_PROMPTS}x{LM_PROMPT_LEN} new={LM_MOE_NEW} "
           f"max_len={LM_MAX_LEN} capacity_factor={cfg.moe_capacity_factor} "
@@ -1366,6 +1392,282 @@ def lm_moe_phase(np, torch, check, dev, smi) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     return peak
+
+
+def timed_ms(torch, fn) -> tuple:
+    """(fn(), host ms around it, the card synchronised at both ends)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+@contextlib.contextmanager
+def counting_drops(Moe, drops: list):
+    """``models.moe.route`` records each call's dropped assignments."""
+    inner = Moe.route
+
+    def recording(cfg, p, xt):
+        got = inner(cfg, p, xt)
+        drops.append(int((got[1] == cfg.num_experts * got[2]).sum()))
+        return got
+
+    Moe.route = recording
+    try:
+        yield drops
+    finally:
+        Moe.route = inner
+
+
+def lm_shard_ep(np, torch, Moe, cfg, moe, g, check, smi) -> int:
+    """[lm:shard:ep]: the full-width fp32 MoE layer of [lm:moe:fp32]
+    (E = 256, k = 8, d 7,168, expert d_ff 2,048, 1 shared expert) on
+    8 x 512 seeded hidden states with a shared offset at capacity 1.25
+    (so assignments drop), expert-parallel over
+    (1, 16) and (2, 8) (data, model) shards of the card.  (1, 16) is
+    held to the one-device ``moe_ffn`` on all 4,096 tokens, (2, 8) row
+    by row to the one-device call on that row's 2,048 (each row routes
+    at its own capacity); out within 5e-4, aux within 1e-4, the dropped
+    assignments equal; the gradient with respect to x through the
+    (1, 16) path is finite.  Returns the device peak from before it; its
+    own peak counts from its start."""
+    from repro_torch.launch.mesh import make_mesh
+    cfg = dataclasses.replace(cfg, moe_capacity_factor=SHARD_EP_CAPACITY)
+    B, S = SHARD_EP_TOKENS
+    # a shared offset skews the routing (hidden states share a mean), so
+    # the busiest experts overflow their capacity
+    x = torch.randn((B, S, cfg.d_model), generator=g, device=g.device) \
+        + 0.5 * torch.randn((cfg.d_model,), generator=g, device=g.device)
+    torch.cuda.synchronize()
+    base_peak = torch.cuda.max_memory_allocated()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        drops: list = []
+        with counting_drops(Moe, drops):
+            want, want_aux = Moe.moe_ffn(cfg, moe, x)
+            one_drops = drops[:]
+            drops.clear()
+            rows = [Moe.moe_ffn(cfg, moe, r) for r in x.chunk(2)]
+            row_drops = drops[:]
+        _, one_ms = timed_ms(torch, lambda: Moe.moe_ffn(cfg, moe, x))
+    one_peak = torch.cuda.max_memory_allocated()
+    for shape in SHARD_EP_MESHES:
+        mesh = make_mesh(shape, ("data", "model"),
+                         devices=[g.device] * (shape[0] * shape[1]))
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad(), Moe.ep_sharding(mesh):
+            drops = []
+            with counting_drops(Moe, drops):
+                out, aux = Moe.moe_ffn(cfg, moe, x)
+            _, ep_ms = timed_ms(torch, lambda: Moe.moe_ffn(cfg, moe, x))
+        if shape[0] == 1:
+            ref_out, ref_aux, ref_drops = want, want_aux, one_drops[0]
+        else:
+            ref_out = torch.cat([o for o, _ in rows])
+            ref_aux = torch.stack([a for _, a in rows]).mean()
+            ref_drops = sum(row_drops)
+        ep_drops = sum(drops) // shape[1]    # every model shard routes
+        diff = float((out - ref_out).abs().max())
+        aux_diff = abs(float(aux) - float(ref_aux))
+        arm_peak = torch.cuda.max_memory_allocated()
+        grad = ""
+        if shape[0] == 1:
+            torch.cuda.reset_peak_memory_stats()
+            xg = x.clone().requires_grad_(True)
+
+            def backward():
+                with Moe.ep_sharding(mesh):
+                    o, a = Moe.moe_ffn(cfg, moe, xg)
+                (o.pow(2).mean() + a).backward()
+                return xg.grad
+            gx, grad_ms = timed_ms(torch, backward)
+            finite = bool(torch.isfinite(gx).all())
+            grad = (f"grad_x_finite={str(finite).lower()} "
+                    f"forward_backward_ms={grad_ms:.3f} forward_backward_"
+                    f"peak_bytes={torch.cuda.max_memory_allocated()} ")
+            check(finite, "[lm:shard:ep] the gradient with respect to x "
+                  "through the (1, 16) EP path is finite")
+            del xg, gx
+        print(f"[lm:shard:ep] arch={cfg.name} mesh={shape[0]}x{shape[1]} "
+              f"experts_per_shard={cfg.num_experts // shape[1]} tokens="
+              f"{B}x{S} capacity_factor={cfg.moe_capacity_factor} "
+              f"ms={ep_ms:.3f} one_device_ms={one_ms:.3f} "
+              f"max_abs_diff={diff:.3g} aux_abs_diff={aux_diff:.3g} "
+              f"dropped={ep_drops} one_device_dropped={ref_drops} {grad}"
+              f"peak_bytes={arm_peak} one_device_peak_bytes={one_peak} "
+              f"resident_bytes_at_start={resident} card=\"{smi}\"",
+              flush=True)
+        check(diff <= SHARD_EP_TOL and aux_diff <= SHARD_AUX_TOL
+              and ep_drops == ref_drops and ref_drops > 0,
+              f"[lm:shard:ep] {shape} EP out within {SHARD_EP_TOL} "
+              f"({diff:.3g}), aux within {SHARD_AUX_TOL} ({aux_diff:.3g}) "
+              f"of the one-device call, drops equal ({ep_drops} vs "
+              f"{ref_drops}, some)")
+        del out
+    return base_peak
+
+
+def lm_shard_pipe(np, torch, cfg, params, tokens, check, smi) -> None:
+    """[lm:shard:pipe]: qwen3-0.6b's 28 layers as 4 GPipe stages of 7
+    over 4 shards of the card, 4 microbatches of 2 x 512 from the
+    [lm:train] batch: the final hidden states within 1e-4 x max|h| of
+    the plain stack, the loss within rtol 1e-5 and every gradient leaf
+    within 1e-3 x its max |g| of the unpipelined backward."""
+    from repro_torch import tree as TR
+    from repro_torch.distributed import pipeline as PL
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    p, n_micro = SHARD_PIPE_STAGES, SHARD_PIPE_MICRO
+    dev = tokens.device
+    B, S = tokens.shape
+    leaves = [t.detach().requires_grad_(True) for t in TR.leaves(params)]
+    P_ = TR.unflatten_like(params, leaves)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    per = cfg.num_layers // p
+
+    def stage_fn(sp, h):
+        for layer in range(per):
+            h, _, _ = T._apply_layer(cfg, T._period(sp, layer), h, pos, None)
+        return h
+
+    def loss_of(h):
+        h = T.Ls.rmsnorm(P_["ln_f"], h, cfg.norm_eps)
+        return T.xent_from_hidden(cfg, P_, h[:, :-1], tokens[:, 1:])
+
+    def plain():
+        x, _ = T._embed_inputs(cfg, P_, {"tokens": tokens})
+        h, _, _ = T._run_stack(cfg, P_, x, pos, None, False)
+        loss = loss_of(h)
+        return h.detach(), loss.detach(), torch.autograd.grad(loss, leaves)
+
+    mesh = make_mesh((p,), ("pp",), devices=[dev] * p)
+    ticks = []
+    hand_off = PL.COL.ppermute
+
+    def pipelined():
+        x, _ = T._embed_inputs(cfg, P_, {"tokens": tokens})
+        stages = PL.stage_slice(P_["stack"][0], "pp", cfg.num_layers, mesh)
+        xm = x.reshape(n_micro, B // n_micro, S, cfg.d_model)
+        h = PL.pipeline_apply(stage_fn, stages, [xm] * p, "pp", mesh)[0]
+        h = h.reshape(B, S, cfg.d_model)
+        loss = loss_of(h)
+        return h.detach(), loss.detach(), torch.autograd.grad(loss, leaves)
+
+    def counted(*a, **kw):
+        ticks.append(1)
+        return hand_off(*a, **kw)
+
+    (h0, l0, g0), plain_ms = timed_ms(torch, plain)
+    PL.COL.ppermute = counted
+    try:
+        (h1, l1, g1), pipe_ms = timed_ms(torch, pipelined)
+    finally:
+        PL.COL.ppermute = hand_off
+    h_scale = float(h0.abs().max())
+    h_diff = float((h1 - h0).abs().max())
+    l_rel = abs(float(l1) - float(l0)) / abs(float(l0))
+    worst = 0.0                       # max |dg| / max |g| over the leaves
+    for a, b in zip(g1, g0):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        worst = max(worst, err / scale if scale else (0.0 if err == 0
+                                                       else float("inf")))
+    n_ticks = len(ticks)
+    print(f"[lm:shard:pipe] arch={cfg.name} layers={cfg.num_layers} "
+          f"stages={p}x{per} microbatches={n_micro}x{B // n_micro}x{S} "
+          f"ticks={n_ticks} bubble_share={(p - 1) / n_ticks:.4f} "
+          f"ms={pipe_ms:.3f} plain_ms={plain_ms:.3f} "
+          f"hidden_max_abs_diff={h_diff:.3g} hidden_max_abs={h_scale:.4g} "
+          f"loss={float(l1):.7f} plain_loss={float(l0):.7f} "
+          f"loss_rel_diff={l_rel:.3g} grad_leaves={len(g0)} "
+          f"grad_worst_rel={worst:.3g} card=\"{smi}\"", flush=True)
+    check(n_ticks == n_micro + p - 1, f"[lm:shard:pipe] {n_micro + p - 1} "
+          f"ticks ({n_ticks})")
+    check(h_diff <= 1e-4 * h_scale, "[lm:shard:pipe] hidden states within "
+          "1e-4 x max|h| of the plain stack")
+    check(l_rel <= 1e-5, "[lm:shard:pipe] loss within rtol 1e-5")
+    check(worst <= 1e-3, f"[lm:shard:pipe] every gradient leaf within "
+          f"1e-3 x its max |g| ({worst:.3g})")
+    del h0, h1, g0, g1
+
+
+def lm_shard_compress(np, torch, cfg, params, tokens, check, smi) -> None:
+    """[lm:shard:compress]: qwen3-0.6b's gradient trees of the [lm:train]
+    batch's 8 rows of 1 x 512 as 8 data shards of the card, through
+    ``compressed_pmean_tree``: each leaf's mean within 5% (relative to
+    the leaf's max |mean|) of the true mean; 16 error-feedback exchanges
+    of the same gradients average within 1%; the largest leaf's int8
+    blocks and scales equal the same function's on the CPU."""
+    from repro_torch import tree as TR
+    from repro_torch.distributed import compression as CP
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    dev = tokens.device
+    n = tokens.shape[0]
+    leaves = [t.detach().requires_grad_(True) for t in TR.leaves(params)]
+    P_ = TR.unflatten_like(params, leaves)
+    grads = []
+    for i in range(n):
+        loss, _ = T.forward_train(cfg, P_, {"tokens": tokens[i:i + 1]},
+                                  remat=False)
+        grads.append(TR.unflatten_like(params, [
+            g.detach() for g in torch.autograd.grad(loss, leaves)]))
+    del leaves, P_
+    mesh = make_mesh((n,), ("data",), devices=[dev] * n)
+    flat = [TR.leaves(t) for t in grads]
+    true = [torch.stack([f[j] for f in flat]).mean(0)
+            for j in range(len(flat[0]))]
+
+    def rel(got, want):
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        return err / scale if scale else (0.0 if err == 0 else float("inf"))
+
+    errs = [CP.zeros_like_tree(t) for t in grads]
+    (means, errs), one_ms = timed_ms(
+        torch, lambda: CP.compressed_pmean_tree(grads, "data", errs,
+                                                mesh=mesh))
+    worst_one = max(rel(m, t) for m, t in zip(TR.leaves(means[0]), true))
+    del means, errs
+    # 16 exchanges of the same gradients, leaf by leaf (one leaf's error
+    # buffers live at a time)
+    worst_avg, ef_ms = 0.0, 0.0
+    for j, want in enumerate(true):
+        xs = [f[j] for f in flat]
+        err = [torch.zeros_like(x) for x in xs]
+        total = torch.zeros_like(want)
+        for _ in range(SHARD_ROUNDS):
+            (m, err), ms = timed_ms(
+                torch, lambda: CP.compressed_pmean(xs, "data", err,
+                                                   mesh=mesh))
+            total += m[0]
+            ef_ms += ms
+        worst_avg = max(worst_avg, rel(total / SHARD_ROUNDS, want))
+        del err, total
+    big = max(range(len(true)), key=lambda j: true[j].numel())
+    q_dev, s_dev, _ = CP._quantize(flat[0][big].reshape(-1))
+    q_cpu, s_cpu, _ = CP._quantize(flat[0][big].reshape(-1).cpu())
+    same = bool(torch.equal(q_dev.cpu(), q_cpu)
+                and torch.equal(s_dev.cpu(), s_cpu))
+    n_values = sum(t.numel() for t in true)
+    wire = CP.wire_bytes(grads[0])
+    print(f"[lm:shard:compress] arch={cfg.name} shards={n} leaves="
+          f"{len(true)} values={n_values} wire_bytes={wire} fp32_bytes="
+          f"{4 * n_values} wire_ratio={wire / (4 * n_values):.4f} "
+          f"exchange_ms={one_ms:.3f} error_feedback_ms_per_exchange="
+          f"{ef_ms / SHARD_ROUNDS:.3f} one_exchange_worst_rel={worst_one:.4g} "
+          f"avg{SHARD_ROUNDS}_worst_rel={worst_avg:.4g} largest_leaf_values="
+          f"{true[big].numel()} int8_equal_cpu={str(same).lower()} "
+          f"card=\"{smi}\"", flush=True)
+    check(worst_one < 0.05, f"[lm:shard:compress] one exchange within 5% "
+          f"of the true mean on every leaf ({worst_one:.4g})")
+    check(worst_avg < 0.01, f"[lm:shard:compress] {SHARD_ROUNDS} error-"
+          f"feedback exchanges average within 1% ({worst_avg:.4g})")
+    check(same, "[lm:shard:compress] the largest leaf's int8 blocks and "
+          "scales equal the CPU's")
+    del grads, flat, true
 
 
 def lm_ssm_phase(np, torch, check, dev, smi) -> int:

@@ -1,13 +1,17 @@
-"""The mesh's collectives over per-tablet tensors, single-controller.
+"""The mesh's collectives over per-shard tensors, single-controller.
 
-One process drives every tablet of a ``launch.mesh.TabletMesh``: a
-sharded value is a list of ``p`` tensors, entry ``d`` on tablet ``d``'s
-device.  Each collective here has the semantics of its ``jax.lax``
-namesake inside ``shard_map`` over that axis, so a per-tablet body of
-the reference ports as phases: the local work of every tablet, then a
-collective, then more local work.  Where tablets share a device (p
-tablets on one card, or on the CPU) the moves are no-ops or on-device
-copies; across cards they are ``.to(device)`` copies.
+One process drives every shard of a mesh (``launch.mesh.TabletMesh`` or
+the LM ``launch.mesh.Mesh``): a sharded value is a list of tensors,
+entry ``i`` on shard ``i``'s device, in the mesh's row-major shard
+order.  Each collective here has the semantics of its ``jax.lax``
+namesake inside ``shard_map``, so a per-shard body of the reference
+ports as phases: the local work of every shard, then a collective, then
+more local work.  With no ``axis_name`` a collective spans every shard
+(the tablet mesh's one axis); with one (a name or a tuple of names) and
+the ``mesh``, it works within each group of shards that share every
+other axis coordinate.  Where shards share a device (many shards on one
+card, or on the CPU) a group's result is made once per device and the
+moves are no-ops; across cards they are ``.to(device)`` copies.
 """
 from __future__ import annotations
 
@@ -32,21 +36,60 @@ def _replicated(value: torch.Tensor, xs: Sequence[torch.Tensor]
     return out
 
 
-def psum(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-    """``lax.psum``: the elementwise sum of every tablet's tensor, on
-    every tablet, in the tensors' dtype (int32 stays int32)."""
-    total = xs[0]
-    for x in xs[1:]:
-        total = total + _on(x, total.device)
-    return _replicated(total, xs)
+def _groups(xs: Sequence, axis_name, mesh) -> list:
+    """Shard indices per group: every shard when ``axis_name`` is None,
+    else ``mesh.groups(axis_name)``."""
+    if axis_name is None:
+        return [list(range(len(xs)))]
+    if mesh is None:
+        raise ValueError(f"a collective over axis {axis_name!r} needs the "
+                         f"mesh")
+    if len(xs) != mesh.size:
+        raise ValueError(f"{len(xs)} shards given for a mesh of "
+                         f"{mesh.size}")
+    return mesh.groups(axis_name)
 
 
-def all_gather(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-    """``lax.all_gather`` (not tiled): every tablet gets the (p, ...)
-    stack of all tablets' tensors, in tablet order."""
-    dev0 = xs[0].device
-    stacked = torch.stack([_on(x, dev0) for x in xs])
-    return _replicated(stacked, xs)
+def _per_group(xs, axis_name, mesh, fn) -> list:
+    """``fn(group's tensors)`` once per group, on every shard of it."""
+    out = [None] * len(xs)
+    for g in _groups(xs, axis_name, mesh):
+        got = _replicated(fn([xs[i] for i in g]), [xs[i] for i in g])
+        for i, t in zip(g, got):
+            out[i] = t
+    return out
+
+
+def axis_index(mesh, axis_name) -> list[int]:
+    """``lax.axis_index``: each shard's index along ``axis_name``."""
+    return [mesh.index_along(i, axis_name) for i in range(mesh.size)]
+
+
+def psum(xs: Sequence[torch.Tensor], axis_name=None, *,
+         mesh=None) -> list[torch.Tensor]:
+    """``lax.psum``: the elementwise sum of the group's tensors, summed
+    in shard order, on every shard of the group, in the tensors' dtype
+    (int32 stays int32)."""
+    def total(g):
+        t = g[0]
+        for x in g[1:]:
+            t = t + _on(x, t.device)
+        return t
+    return _per_group(xs, axis_name, mesh, total)
+
+
+def all_gather(xs: Sequence[torch.Tensor], axis_name=None, *, mesh=None,
+               axis: int = 0, tiled: bool = False) -> list[torch.Tensor]:
+    """``lax.all_gather``: every shard of a group gets its tensors in
+    group order, stacked on a new dim ``axis`` or, ``tiled``,
+    concatenated along ``axis`` (a group of one keeps its tensor)."""
+    def gather(g):
+        dev0 = g[0].device
+        if tiled:
+            return g[0] if len(g) == 1 else \
+                torch.cat([_on(x, dev0) for x in g], dim=axis)
+        return torch.stack([_on(x, dev0) for x in g], dim=axis)
+    return _per_group(xs, axis_name, mesh, gather)
 
 
 def all_to_all(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
@@ -62,15 +105,21 @@ def all_to_all(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
             for d in range(p)]
 
 
-def ppermute(xs: Sequence[torch.Tensor], perm) -> list[torch.Tensor]:
-    """``lax.ppermute``: ``perm`` holds ``(source, destination)`` pairs;
-    tablet ``dst`` receives tablet ``src``'s tensor, and a tablet that
-    is no destination gets zeros."""
+def ppermute(xs: Sequence[torch.Tensor], perm, axis_name=None, *,
+             mesh=None) -> list[torch.Tensor]:
+    """``lax.ppermute``: ``perm`` holds ``(source, destination)`` pairs
+    of indices within a group; shard ``dst`` of each group receives
+    shard ``src``'s tensor, and a shard that is no destination gets
+    zeros."""
     out = [None] * len(xs)
-    for src, dst in perm:
-        if out[dst] is not None:
-            raise ValueError(f"ppermute: tablet {dst} is the destination "
-                             f"of more than one pair in {perm}")
-        out[dst] = _on(xs[src], xs[dst].device)
+    for g in _groups(xs, axis_name, mesh):
+        seen = set()
+        for src, dst in perm:
+            if dst in seen:
+                raise ValueError(f"ppermute: shard {dst} is the "
+                                 f"destination of more than one pair in "
+                                 f"{perm}")
+            seen.add(dst)
+            out[g[dst]] = _on(xs[g[src]], xs[g[dst]].device)
     return [torch.zeros_like(x) if o is None else o
             for x, o in zip(xs, out)]

@@ -47,8 +47,9 @@ def main(argv=None):
 
     if args.mesh != "auto":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: LM sharding is a later slice of ROADMAP "
-            f"queue 1 item 8; --mesh auto trains on one device")
+            f"--mesh {args.mesh}: the sharded train step is ROADMAP "
+            f"queue 1 item 2, not ported yet; --mesh auto trains on one "
+            f"device")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()

@@ -4,7 +4,8 @@ flattens them.
 The LM side of the port keeps the reference's parameter, optimizer-state
 and cache trees: dicts (entries in sorted key order), lists and tuples,
 dataclasses (fields in declaration order) and ``None`` (an empty
-subtree).  Everything else is a leaf.  :func:`flatten_with_path` gives
+subtree).  Everything else is a leaf, a subclass of ``tuple`` or
+``list`` too (``distributed.sharding.PartitionSpec``), as in jax.  :func:`flatten_with_path` gives
 each leaf jax's key-path string (``.params['stack'][0]['attn']['wq']``),
 which is what a checkpoint stores, so a tree saved by either package
 restores in the other.
@@ -19,7 +20,7 @@ def _children(node):
     """(kind, [(path suffix, child)]) of a container, or None for a leaf."""
     if isinstance(node, dict):
         return "dict", [(f"[{k!r}]", node[k]) for k in sorted(node)]
-    if isinstance(node, (list, tuple)):
+    if type(node) in (list, tuple):
         return type(node), [(f"[{i}]", c) for i, c in enumerate(node)]
     if dataclasses.is_dataclass(node) and not isinstance(node, type):
         return type(node), [(f".{f.name}", getattr(node, f.name))

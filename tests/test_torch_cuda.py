@@ -939,3 +939,99 @@ def test_moe_ffn_on_the_card_is_bit_reproducible(cuda, dtype):
                                    rtol=0)
         np.testing.assert_allclose(float(first[1].detach()),
                                    float(want[1].detach()), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# LM sharding over shards of the card (single controller)
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cf", [((2, 4), 8.0), ((2, 4), 1.25),
+                                      ((1, 8), 1.25)])
+def test_expert_parallel_moe_on_the_card_matches_cpu(cuda, shape, cf):
+    """deepseek-v3 reduced (shared expert included) on 8 x 512 tokens:
+    the EP path over card shards against the same path over CPU shards,
+    out within 5e-4 and aux within 1e-4; at 8.0 also against the
+    one-device call; the gradient with respect to x is finite."""
+    import dataclasses
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as M
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b").reduced(),
+                              moe_capacity_factor=cf)
+    g = torch.Generator().manual_seed(0)
+    p_cpu = M.init_moe(cfg, g, torch.float32)
+    x_cpu = torch.randn((8, 512, cfg.d_model), generator=g) * 0.3 \
+        + torch.randn((cfg.d_model,), generator=g)
+    p_gpu = TR.map_structure(lambda t: t.to(cuda), p_cpu)
+    x_gpu = x_cpu.to(cuda).requires_grad_(True)
+    n = shape[0] * shape[1]
+    with M.ep_sharding(make_mesh(shape, ("data", "model"),
+                                 devices=[cuda] * n)):
+        out, aux = M.moe_ffn(cfg, p_gpu, x_gpu)
+    out.pow(2).mean().backward()
+    assert torch.isfinite(x_gpu.grad).all()
+    with M.ep_sharding(make_mesh(shape, ("data", "model"),
+                                 devices=["cpu"] * n)):
+        want, want_aux = M.moe_ffn(cfg, p_cpu, x_cpu)
+    np.testing.assert_allclose(out.detach().cpu().numpy(), want.numpy(),
+                               atol=5e-4, rtol=0)
+    assert abs(float(aux.detach()) - float(want_aux)) < 1e-4
+    if cf == 8.0:
+        one, one_aux = M.moe_ffn(cfg, p_gpu, x_gpu.detach())
+        np.testing.assert_allclose(out.detach().cpu().numpy(),
+                                   one.cpu().numpy(), atol=5e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_pipeline_on_the_card_matches_the_plain_stack(cuda):
+    """GPipe over 4 card shards (8 tanh layers, 6 microbatches): outputs
+    within 1e-5 and gradients within 1e-4 of the plain stack's."""
+    from repro_torch.distributed import pipeline as PL
+    from repro_torch.launch.mesh import make_mesh
+    g = torch.Generator().manual_seed(0)
+    W = (torch.randn((8, 16, 16), generator=g) * 0.5).to(cuda)
+    x = torch.randn((6, 4, 16), generator=g).to(cuda)
+
+    def stack(ws, h):
+        for w in ws:
+            h = torch.tanh(h @ w)
+        return h
+
+    Wp, xp = W.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    mesh = make_mesh((4,), ("pp",), devices=[cuda] * 4)
+    out = PL.pipeline_apply(stack, PL.stage_slice(Wp, "pp", 8, mesh),
+                            [xp] * 4, "pp", mesh)[0]
+    (out ** 2).sum().backward()
+    Wr, xr = W.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    want = stack(Wr, xr)
+    (want ** 2).sum().backward()
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
+    torch.testing.assert_close(Wp.grad, Wr.grad, atol=1e-4, rtol=0)
+    torch.testing.assert_close(xp.grad, xr.grad, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_compressed_exchange_on_the_card_equals_cpu(cuda):
+    """8 card shards of 4,096 and 1,000 values (a zero block among
+    them): int8 blocks, scales and error feedback equal the CPU's, the
+    means within 1e-6."""
+    from repro_torch.distributed import compression as CP
+    from repro_torch.launch.mesh import make_mesh
+    rng = np.random.default_rng(0)
+    for n in (4096, 1000):
+        vals = rng.normal(size=(8, n)).astype(np.float32)
+        vals[:, 256:512] = 0.0
+        cpu = [torch.from_numpy(v.copy()) for v in vals]
+        gpu = [t.to(cuda) for t in cpu]
+        for a, b in zip(CP._quantize(gpu[0])[:2], CP._quantize(cpu[0])[:2]):
+            assert torch.equal(a.cpu(), b)
+        mesh = make_mesh((8,), ("pod",), devices=[cuda] * 8)
+        errs = [torch.zeros_like(t) for t in gpu]
+        m_gpu, e_gpu = CP.compressed_pmean(gpu, "pod", errs, mesh=mesh)
+        m_cpu, e_cpu = CP.compressed_pmean(
+            cpu, None, [torch.zeros_like(t) for t in cpu])
+        for a, b in zip(e_gpu, e_cpu):
+            assert torch.equal(a.cpu(), b)
+        np.testing.assert_allclose(m_gpu[0].cpu().numpy(),
+                                   m_cpu[0].numpy(), atol=1e-6, rtol=0)

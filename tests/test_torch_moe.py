@@ -86,6 +86,45 @@ def test_moe_ffn_with_drops_matches_reference(arch, act):
     np.testing.assert_allclose(float(paux), float(jaux), rtol=1e-5)
 
 
+def _reference_slots(idx, E, C):
+    """The reference's dispatch slots (k, T) from its top-k ``idx`` (T, k):
+    choice-major, a stable sort by expert, ``E * C`` where dropped."""
+    flat_e = np.asarray(idx).T.reshape(-1)
+    order = np.argsort(flat_e, kind="stable")
+    e_s = flat_e[order]
+    pos = np.arange(e_s.size) - np.searchsorted(e_s, e_s, side="left")
+    slots = np.empty_like(e_s)
+    slots[order] = np.where(pos < C, e_s * C + pos, E * C)
+    return slots.reshape(idx.shape[1], -1)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("B,S", [(1, 1), (2, 16)])
+def test_zero_router_ties_route_as_the_reference(arch, B, S):
+    """A zero router ties every expert: ``lax.top_k`` puts the lower
+    index first, so every token goes to experts 0..k-1, and the batch
+    overflows them.  Output, aux and slots equal the reference's."""
+    jc, pc = jget(arch).reduced(), get_config(arch).reduced()
+    jp = dict(JM.init_moe(jc, jax.random.PRNGKey(3), jnp.float32))
+    jp["router"] = jnp.zeros_like(jp["router"])
+    x = np.random.default_rng(4).normal(
+        size=(B, S, jc.d_model)).astype(np.float32)
+    jo, jaux = JM.moe_ffn(jc, jp, jnp.asarray(x))
+    pp, xt = tensors(jp), torch.from_numpy(x)
+    po, paux = M.moe_ffn(pc, pp, xt)
+    T_, k = B * S, jc.experts_per_token
+    probs = jax.nn.softmax(jnp.asarray(x).reshape(T_, -1) @ jp["router"])
+    _, idx = jax.lax.top_k(probs, k)
+    assert (np.asarray(idx) == np.arange(k)).all()
+    gates, slots, C, _ = M.route(pc, pp, xt.reshape(T_, -1))
+    np.testing.assert_array_equal(
+        slots.numpy(), _reference_slots(idx, jc.num_experts, C))
+    np.testing.assert_array_equal(gates.numpy(), np.full((T_, k), 1.0 / k,
+                                                         np.float32))
+    np.testing.assert_allclose(po.numpy(), np.asarray(jo), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(float(paux), float(jaux), rtol=1e-5)
+
+
 @pytest.mark.parametrize("T_,k,E,cf", [(32, 2, 8, 1.25), (1, 8, 256, 1.25),
                                        (4096, 8, 256, 1.25),
                                        (7, 2, 16, 8.0), (4096, 8, 256, 8.0)])
