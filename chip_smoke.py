@@ -211,6 +211,7 @@ import dataclasses
 import gc
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -288,6 +289,14 @@ SHARD_AUX_TOL = 1e-4
 SHARD_PIPE_STAGES = 4       # [lm:shard:pipe]: 4 stages x 7 layers,
 SHARD_PIPE_MICRO = 4        # 4 microbatches of 2 x 512
 SHARD_ROUNDS = 16           # [lm:shard:compress]: error-feedback rounds
+SHARD_TRAIN_BATCH = (16, 256)   # [lm:shard:train]: 4,096 tokens, 16 rows
+SHARD_TRAIN_STEPS = 3       # [lm:shard:train]: steps, then save
+SHARD_RESTORE_MESH = (2, 4)     # [lm:shard:train]: the elastic restore's
+SHARD_TRAIN_RTOL = 1e-4
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", "single"),
+                ("deepseek-v3-671b", "decode_32k", "multi"),
+                ("mamba2-780m", "long_500k", "single"),
+                ("dna-suffix", "serve", "single"))
 
 # Published H100 SXM peaks (NVIDIA data sheet), used for the bounds.
 MEM_BYTES_PER_S = 3.35e12
@@ -1797,6 +1806,205 @@ def lm_archs_phase(np, torch, check, dev, smi) -> None:
           + f" seconds={time.perf_counter() - t1:.4f}", flush=True)
 
 
+def lm_shard_train_phase(np, torch, check, dev, smi) -> int:
+    """[lm:shard:train]: qwen3-0.6b at published widths, fp32, AdamW at
+    [lm:train]'s settings, on the production (16, 16) mesh as 256 shards
+    of the card through ``launch.train``'s mesh and placement code, three
+    steps beside the one-device step on the same batches; save at step
+    3, restore onto (2, 4) and onto one device, one more step on each
+    and on (16, 16).  Returns the phase's device peak."""
+    from repro_torch import tree as TR
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.distributed import collectives as COL
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import (OptConfig, make_train_step,
+                                      train_state_init)
+    t_all = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    ocfg = OptConfig(kind="adamw", lr=LM_LR, warmup_steps=2,
+                     total_steps=LM_STEPS)
+    rows, seq = SHARD_TRAIN_BATCH
+    data = DataConfig(seed=LM_SEED, global_batch=rows, seq_len=seq)
+    batches = [synthetic_batch(cfg, data, i)
+               for i in range(SHARD_TRAIN_STEPS + 1)]
+
+    def timed(fn, state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = fn(state, batch)
+        torch.cuda.synchronize()
+        return state, m, time.perf_counter() - t0
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state0 = train_state_init(cfg, ocfg, LM_SEED, device=dev)
+    one_bytes = sum(x.numel() * x.element_size()
+                    for x in TR.leaves((state0.params, state0.opt_state)))
+    one_fn = make_train_step(cfg, ocfg)
+    one, one_m, one_s, state = [], [], [], state0
+    for i in range(SHARD_TRAIN_STEPS + 1):
+        state, m, dt = timed(one_fn, state, batches[i])
+        one_m.append((float(m["loss"]), float(m["grad_norm"])))
+        one_s.append(dt)
+    del state
+
+    mesh = LT.make_mesh_for("single", dev)
+    specs, per_shard = LT.state_specs(cfg, ocfg, mesh)
+    mesh.require_room(per_shard, f"the train state of {cfg.name}")
+    t0 = time.perf_counter()
+    state = SH.place_tree(state0, specs, mesh)
+    place_s = time.perf_counter() - t0
+    del state0
+    stored = SH.stored_bytes((state.params, state.opt_state))
+    bspecs = SH.batch_spec_tree(batches[0], mesh)
+    step = make_train_step(cfg, ocfg, shard=SH.make_shard_fn(mesh))
+    sh_m, sh_s, coll = [], [], []
+    for i in range(SHARD_TRAIN_STEPS):
+        with COL.counting(mesh.size) as counts:
+            state, m, dt = timed(step, state,
+                                 SH.place_tree(batches[i], bspecs, mesh))
+        sh_m.append((float(m["loss"]), float(m["grad_norm"])))
+        sh_s.append(dt)
+        coll.append(counts.summary())
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_shard_",
+                             dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        CheckpointManager(ckdir).save(SHARD_TRAIN_STEPS, state,
+                                      extra={"data_step": SHARD_TRAIN_STEPS})
+        save_s = time.perf_counter() - t0
+        last = batches[SHARD_TRAIN_STEPS]
+        after, m, _ = timed(step, state, SH.place_tree(last, bspecs, mesh))
+        fourth = {"16x16": float(m["loss"])}
+        del after, m
+        restore_s = {}
+        small = make_mesh(SHARD_RESTORE_MESH, ("data", "model"),
+                          devices=[dev] * math.prod(SHARD_RESTORE_MESH))
+        for name, target in (("2x4", small), ("one-device", None)):
+            shardings = None if target is None else \
+                (target, LT.state_specs(cfg, ocfg, target)[0])
+            gc.collect()
+            t0 = time.perf_counter()
+            at, restored, extra = CheckpointManager(ckdir).restore_latest(
+                state, shardings)
+            torch.cuda.synchronize()
+            restore_s[name] = time.perf_counter() - t0
+            check(at == SHARD_TRAIN_STEPS and extra["data_step"] == at,
+                  f"[lm:shard:train] restored step {at} onto {name}")
+            if target is None:
+                kinds = {type(x) for x in TR.leaves(restored)}
+                check(kinds == {torch.Tensor}, "[lm:shard:train] the "
+                      "one-device restore holds whole tensors")
+                fn, b = make_train_step(cfg, ocfg), last
+            else:
+                fn = make_train_step(cfg, ocfg,
+                                     shard=SH.make_shard_fn(target))
+                b = SH.place_tree(last, SH.batch_spec_tree(last, target),
+                                  target)
+            after, m, _ = timed(fn, restored, b)
+            fourth[name] = float(m["loss"])
+            del after, m, b, restored
+        del state
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() - base
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(sh_m, one_m))
+    gn_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(sh_m, one_m))
+    f = list(fourth.values())
+    f_rel = max(abs(a - b) / abs(b) for a in f for b in f)
+    mean = lambda xs: sum(xs[1:]) / (len(xs) - 1)
+    print(f"[lm:shard:train] arch={cfg.name} mesh=16x16 shards={mesh.size} "
+          f"descriptor={mesh.descriptor} batch={rows}x{seq} steps="
+          f"{SHARD_TRAIN_STEPS} optimizer=adamw lr={LM_LR} losses="
+          f"{','.join(f'{a[0]:.6f}' for a in sh_m)} one_device_losses="
+          f"{','.join(f'{a[0]:.6f}' for a in one_m[:SHARD_TRAIN_STEPS])} "
+          f"grad_norms={','.join(f'{a[1]:.6f}' for a in sh_m)} "
+          f"one_device_grad_norms="
+          f"{','.join(f'{a[1]:.6f}' for a in one_m[:SHARD_TRAIN_STEPS])} "
+          f"loss_max_rel_diff={rel:.3g} grad_norm_max_rel_diff={gn_rel:.3g} "
+          f"step_ms={mean(sh_s) * 1e3:.3f} first_step_ms={sh_s[0] * 1e3:.3f} "
+          f"one_device_step_ms={mean(one_s) * 1e3:.3f} "
+          f"shard_state_bytes={per_shard} stored_state_bytes={stored} "
+          f"one_device_state_bytes={one_bytes} "
+          f"gather_bytes_per_step={coll[-1]['by_kind'].get('gather', 0)} "
+          f"scatter_bytes_per_step={coll[-1]['by_kind'].get('scatter', 0)} "
+          f"collective_counts={json.dumps(coll[-1]['count_by_kind'])} "
+          f"place_seconds={place_s:.3f} save_seconds={save_s:.3f} "
+          f"restore_seconds="
+          f"{json.dumps({k: round(v, 3) for k, v in restore_s.items()})} "
+          f"fourth_losses="
+          f"{json.dumps({k: round(v, 7) for k, v in fourth.items()})} "
+          f"one_device_fourth_loss={one_m[-1][0]:.7f} "
+          f"fourth_max_rel_diff={f_rel:.3g} peak_bytes={peak} "
+          f"seconds={time.perf_counter() - t_all:.3f} card=\"{smi}\"",
+          flush=True)
+    check(rel <= SHARD_TRAIN_RTOL, f"[lm:shard:train] (16, 16) losses within "
+          f"rtol {SHARD_TRAIN_RTOL} of the one-device run's ({rel:.3g})")
+    check(f_rel <= SHARD_TRAIN_RTOL, f"[lm:shard:train] the fourth step's "
+          f"loss on (16, 16), (2, 4) and one device within rtol "
+          f"{SHARD_TRAIN_RTOL} of each other ({f_rel:.3g})")
+    check(stored == one_bytes, "[lm:shard:train] the 256 shards store each "
+          "distinct block once: the one-device state's bytes")
+    return peak
+
+
+def lm_dryrun_phase(np, torch, check, smi) -> None:
+    """[lm:dryrun]: ``python -m repro_torch.launch.dryrun``'s cells
+    DRYRUN_CELLS, one record line each: the LM cells on meta tensors over
+    the production meshes, ``dna-suffix:serve:single`` on the card."""
+    from repro_torch.launch import dryrun as DR
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_",
+                           dir=os.path.join(ROOT, "build"))
+    try:
+        for arch, shape, mesh in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            done = DR.main(["--arch", arch, "--shape", shape, "--mesh", mesh,
+                            "--force", "--out-dir", out])
+            secs = time.perf_counter() - t0
+            cell = f"{arch}__{shape}__{mesh}"
+            rec = done.get(cell, {"error": "no record"})
+            ok = "error" not in rec and not rec.get("skipped")
+            check(ok, f"[lm:dryrun] {cell} ran: {rec.get('error')}")
+            if not ok:
+                continue
+            roof = rec["roofline"]
+            fields = {"cell": rec["label"], "seconds": round(secs, 3),
+                      "device": rec["device"], "chips": rec["chips"]}
+            if arch == "dna-suffix":
+                fields.update(
+                    text_len=rec["text_len"], serve_seconds=rec["seconds"],
+                    build_seconds=rec["build_s"],
+                    device_peak_bytes=rec["device_peak_bytes"],
+                    equals_single_device=rec["equals_single_device"])
+                check(rec["equals_single_device"], f"[lm:dryrun] {cell} "
+                      "answers equal the one-device search")
+            else:
+                fields.update(
+                    flops=rec["flops"], model_flops=rec["model_flops"],
+                    useful_ratio=round(rec["useful_ratio"], 4),
+                    hbm_bytes=rec["hbm_bytes"], memory=rec["memory"],
+                    memory_floor_s=rec["memory_floor_s"])
+                check(rec["flops"] > 0, f"[lm:dryrun] {cell} counts FLOPs")
+            fields.update(collective=rec["collective"].get("by_kind"),
+                          collective_counts=rec["collective"].get(
+                              "count_by_kind"),
+                          roofline={k: roof[k] for k in (
+                              "compute_s", "memory_s", "collective_s",
+                              "dominant", "bound_step_s")})
+            print(f"[lm:dryrun] {json.dumps(fields)} card=\"{smi}\"",
+                  flush=True)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1828,6 +2036,8 @@ def main() -> int:
     peak = max(peak, lm_moe_phase(np, torch, check, dev, smi))
     peak = max(peak, lm_ssm_phase(np, torch, check, dev, smi))
     lm_archs_phase(np, torch, check, dev, smi)
+    peak = max(peak, lm_shard_train_phase(np, torch, check, dev, smi))
+    lm_dryrun_phase(np, torch, check, smi)
     print(f"[memory] peak_bytes={peak}", flush=True)
     print(smi, flush=True)          # card name and power limit, as is
     if failures:

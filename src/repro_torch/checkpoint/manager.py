@@ -15,10 +15,14 @@ table's flat dict of arrays, ``".params['stack'][0]['attn']['wq']"``,
 ``".opt_state['m'][...]"`` and ``".step"`` for a ``TrainState``.
 :meth:`CheckpointManager.restore` puts a step back into the structure of
 a ``like`` tree, leaf by path, so a train state saved by either package
-restores in the other.  A save writes ``step_XXXX.tmp`` and publishes it
-with one ``os.rename``, so a preempted save never corrupts the latest
-snapshot; ``.tmp`` dirs are ignored by :meth:`CheckpointManager.
-all_steps`.
+restores in the other.  A sharded state (``distributed.sharding.
+Sharded`` leaves) is saved as full arrays joined from its blocks, and
+``restore(step, like, shardings=(mesh, spec_tree))`` places the leaves
+on that mesh by those specs: the elastic path, onto another mesh shape
+or, with ``shardings=None``, onto one device.  A save writes
+``step_XXXX.tmp`` and publishes it with one ``os.rename``, so a
+preempted save never corrupts the latest snapshot; ``.tmp`` dirs are
+ignored by :meth:`CheckpointManager.all_steps`.
 
 Shard-streaming saves (:meth:`CheckpointManager.stage_sharded`, the
 reference's format): a large array is streamed into the staged
@@ -54,7 +58,9 @@ def by_key(arrays: dict) -> dict:
 
 
 def _host(arr) -> np.ndarray:
-    """A tensor or array as host numpy."""
+    """A tensor, a ``Sharded`` (joined) or an array as host numpy."""
+    if hasattr(arr, "join") and hasattr(arr, "layout"):
+        arr = arr.join()
     if hasattr(arr, "detach"):
         arr = arr.detach().cpu().numpy()
     return np.asarray(arr)
@@ -198,33 +204,40 @@ class CheckpointManager:
                 else np.zeros((0,), np.dtype(ent["dtype"] or "int32")))
         return arrays, meta["extra"]
 
-    def restore(self, step: int, like):
+    def restore(self, step: int, like, shardings=None):
         """``(tree, extra)``: step ``step`` in the structure of ``like``,
         each leaf found by its key path, checked for shape and cast to
-        the ``like`` leaf's dtype; a tensor leaf comes back a tensor on
-        that leaf's device, anything else numpy."""
+        the ``like`` leaf's dtype; a tensor (or ``Sharded``) leaf comes
+        back a tensor on that leaf's device, anything else numpy.  With
+        ``shardings=(mesh, spec_tree)`` the leaves come back placed on
+        ``mesh`` by ``spec_tree`` (``distributed.sharding.place_tree``)."""
         saved, extra = self.restore_arrays(step)
+        if shardings is not None:
+            from repro_torch.distributed.sharding import place
+            mesh, specs = shardings
+            specs = T.leaves(specs)
         leaves = []
-        for p, x in T.flatten_with_path(like):
+        for k, (p, x) in enumerate(T.flatten_with_path(like)):
             if p not in saved:
                 raise KeyError(f"checkpoint missing leaf {p}")
             a = saved[p]
             if tuple(a.shape) != tuple(x.shape):
                 raise ValueError(f"shape mismatch at {p}: "
                                  f"{a.shape} vs {tuple(x.shape)}")
-            if hasattr(x, "detach"):             # a tensor
-                import torch
-                leaves.append(torch.from_numpy(
-                    a if a.flags.writeable else a.copy()).to(
-                    device=x.device, dtype=x.dtype))
+            if hasattr(x, "detach") or hasattr(x, "layout"):
+                import torch                     # a tensor or a Sharded
+                t = torch.from_numpy(a if a.flags.writeable else a.copy()
+                                     ).to(device=x.device, dtype=x.dtype)
+                leaves.append(t if shardings is None
+                              else place(t, specs[k], mesh))
             else:
                 leaves.append(a.astype(np.asarray(x).dtype))
         return T.unflatten_like(like, leaves), extra
 
-    def restore_latest(self, like):
+    def restore_latest(self, like, shardings=None):
         """``(step, tree, extra)`` of the latest step, or None."""
         step = self.latest_step()
         if step is None:
             return None
-        tree, extra = self.restore(step, like)
+        tree, extra = self.restore(step, like, shardings)
         return step, tree, extra

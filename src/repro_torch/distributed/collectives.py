@@ -12,12 +12,81 @@ the ``mesh``, it works within each group of shards that share every
 other axis coordinate.  Where shards share a device (many shards on one
 card, or on the CPU) a group's result is made once per device and the
 moves are no-ops; across cards they are ``.to(device)`` copies.
+
+Inside ``with counting() as c:`` every collective adds one to its kind's
+count in ``c`` and its operand's bytes on one shard to that kind's
+bytes, the convention of the reference's ``launch/hlo_analysis.py``
+(which sums the operand bytes of each collective of the per-device
+program).  ``counting(shards=n)`` counts a call over fewer than ``n``
+shards (one group of a loop over groups) as that share of one, so a
+loop that covers every shard once counts one collective a shard.  The
+kinds are ``psum``, ``all_gather``, ``all_to_all`` and ``ppermute``
+here, and the sharded train step's ``gather`` (a param
+leaf joined from its blocks) and ``scatter`` (a gradient cut into its
+blocks), which it records itself (``training.train_step``).
 """
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+import contextvars
+from typing import Iterator, Sequence
 
 import torch
+
+KINDS = ("psum", "all_gather", "all_to_all", "ppermute", "gather",
+         "scatter")
+
+
+class Counts:
+    """Count and bytes (operand bytes on one shard) per collective kind,
+    over a mesh of ``shards`` shards (None: every call counts one)."""
+
+    def __init__(self, shards: int = None):
+        self.shards = shards
+        self.count = dict.fromkeys(KINDS, 0.0)
+        self.bytes = dict.fromkeys(KINDS, 0.0)
+
+    def add(self, kind: str, n_bytes: int, n_shards: int = None) -> None:
+        share = 1.0 if self.shards is None or n_shards is None \
+            else n_shards / self.shards
+        self.count[kind] += share
+        self.bytes[kind] += share * n_bytes
+
+    def summary(self) -> dict:
+        """The reference's ``collective_bytes`` record, and the counts
+        per kind: ``{"bytes", "count", "by_kind", "count_by_kind"}``
+        (kinds never seen left out)."""
+        seen = [k for k in KINDS if self.count[k]]
+        return {"bytes": round(sum(self.bytes.values())),
+                "count": round(sum(self.count.values())),
+                "by_kind": {k: round(self.bytes[k]) for k in seen},
+                "count_by_kind": {k: round(self.count[k]) for k in seen}}
+
+
+_COUNTS: contextvars.ContextVar = contextvars.ContextVar(
+    "collective_counts", default=None)
+
+
+@contextlib.contextmanager
+def counting(shards: int = None) -> Iterator[Counts]:
+    """Count the collectives run inside the block (nested blocks count
+    into the innermost one only) over a mesh of ``shards`` shards."""
+    counts = Counts(shards)
+    token = _COUNTS.set(counts)
+    try:
+        yield counts
+    finally:
+        _COUNTS.reset(token)
+
+
+def record(kind: str, operand: torch.Tensor, n_shards: int = None
+           ) -> None:
+    """Count one ``kind`` collective of ``operand`` (one shard's) over
+    ``n_shards`` shards (None: the whole mesh)."""
+    counts = _COUNTS.get()
+    if counts is not None:
+        counts.add(kind, operand.numel() * operand.element_size(),
+                   n_shards)
 
 
 def _on(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -70,6 +139,8 @@ def psum(xs: Sequence[torch.Tensor], axis_name=None, *,
     """``lax.psum``: the elementwise sum of the group's tensors, summed
     in shard order, on every shard of the group, in the tensors' dtype
     (int32 stays int32)."""
+    record("psum", xs[0], len(xs))
+
     def total(g):
         t = g[0]
         for x in g[1:]:
@@ -83,6 +154,8 @@ def all_gather(xs: Sequence[torch.Tensor], axis_name=None, *, mesh=None,
     """``lax.all_gather``: every shard of a group gets its tensors in
     group order, stacked on a new dim ``axis`` or, ``tiled``,
     concatenated along ``axis`` (a group of one keeps its tensor)."""
+    record("all_gather", xs[0], len(xs))
+
     def gather(g):
         dev0 = g[0].device
         if tiled:
@@ -101,6 +174,7 @@ def all_to_all(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         if int(x.shape[0]) != p:
             raise ValueError(f"all_to_all needs a leading axis of {p} "
                              f"(the tablet count), got {tuple(x.shape)}")
+    record("all_to_all", xs[0], len(xs))
     return [torch.stack([_on(x[d], xs[d].device) for x in xs])
             for d in range(p)]
 
@@ -111,6 +185,7 @@ def ppermute(xs: Sequence[torch.Tensor], perm, axis_name=None, *,
     of indices within a group; shard ``dst`` of each group receives
     shard ``src``'s tensor, and a shard that is no destination gets
     zeros."""
+    record("ppermute", xs[0], len(xs))
     out = [None] * len(xs)
     for g in _groups(xs, axis_name, mesh):
         seen = set()

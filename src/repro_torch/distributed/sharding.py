@@ -17,13 +17,17 @@ reference's regexes apply as they are.
 The port is eager and single-controller: a sharded tensor is a list of
 per-shard pieces in the mesh's row-major shard order (``split`` /
 ``join``), and an activation constraint has nothing to constrain
-(``make_shard_fn``).
+(``make_shard_fn``).  A placed state leaf is a :class:`Sharded`: each
+distinct block stored once, shared by every shard on its device that
+holds it (``place_tree``, the reference's ``named`` + ``device_put``;
+``join_tree`` is its inverse).
 """
 from __future__ import annotations
 
+import functools
 import math
 import re
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -172,6 +176,7 @@ def make_shard_fn(mesh, seq_shard: bool = False):
         return x
 
     shard.spec = spec
+    shard.mesh = mesh
     return shard
 
 
@@ -332,3 +337,193 @@ def join(pieces, spec, mesh) -> torch.Tensor:
             idx[dim] = slice(start, start + size)
         out[tuple(idx)] = piece.to(out.device)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Placed tensors: each distinct block once
+# ---------------------------------------------------------------------------
+class Layout(NamedTuple):
+    """Where the blocks of a ``shape`` tensor placed by a spec lie:
+    shard ``i`` holds block ``index[i]``; block ``j`` starts at
+    ``starts[j]`` (one offset per dim), is ``size`` long on each dim and
+    lies on shard ``first[j]``'s device; ``splits`` is the number of
+    distinct block positions and ``own`` one block at each of them."""
+    index: tuple
+    starts: tuple
+    first: tuple
+    size: tuple
+    splits: int
+    own: tuple
+
+
+@functools.lru_cache(maxsize=1024)
+def layout(shape: tuple, spec, mesh) -> Layout:
+    """The :class:`Layout` of ``shape`` under ``spec`` on ``mesh``: shards
+    on one device that hold the same block share it."""
+    size = list(shape)
+    splits = 1
+    for dim, part in enumerate(spec):
+        if part is not None:
+            n = mesh.axis_size(part)
+            size[dim] //= n
+            splits *= n
+    ids: dict = {}
+    index, starts, first = [], [], []
+    for i in range(mesh.size):
+        at = [0] * len(shape)
+        for dim, start, _ in _blocks(shape, spec, mesh, i):
+            at[dim] = start
+        key = (mesh.devices[i], tuple(at))
+        if key not in ids:
+            ids[key] = len(starts)
+            starts.append(tuple(at))
+            first.append(i)
+        index.append(ids[key])
+    own = tuple(starts.index(at) for at in dict.fromkeys(starts))
+    return Layout(tuple(index), tuple(starts), tuple(first), tuple(size),
+                  splits, own)
+
+
+class Sharded:
+    """A tensor placed on ``mesh`` by ``spec`` (the reference's array
+    under a ``NamedSharding``), held once per distinct block:
+    ``blocks[j]`` lies on the device of the first shard that holds it,
+    and shard ``i``'s piece is ``blocks[layout.index[i]]``.  A leaf of
+    ``repro_torch.tree``."""
+
+    __slots__ = ("blocks", "layout", "spec", "mesh", "shape")
+
+    def __init__(self, blocks: list, layout: Layout, spec, mesh,
+                 shape: tuple):
+        self.blocks, self.layout = blocks, layout
+        self.spec, self.mesh, self.shape = spec, mesh, tuple(shape)
+
+    def __repr__(self):
+        return (f"Sharded(shape={self.shape}, spec={self.spec!r}, "
+                f"blocks={len(self.blocks)} of {tuple(self.layout.size)})")
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.blocks[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.blocks[0].device
+
+    @property
+    def pieces(self) -> list:
+        """Shard ``i``'s piece for every shard, in shard order."""
+        return [self.blocks[j] for j in self.layout.index]
+
+    @property
+    def block_bytes(self) -> int:
+        b = self.blocks[0]
+        return b.numel() * b.element_size()
+
+    def with_blocks(self, blocks: list) -> "Sharded":
+        """The same placement holding ``blocks``."""
+        return Sharded(blocks, self.layout, self.spec, self.mesh,
+                       self.shape)
+
+    def join(self) -> torch.Tensor:
+        """The full tensor, on the first block's device."""
+        if len(self.blocks) == 1 and self.layout.splits == 1:
+            return self.blocks[0]
+        first = self.blocks[0]
+        out = first.new_empty(self.shape)
+        for start, block in zip(self.layout.starts, self.blocks):
+            idx = tuple(slice(a, a + n)
+                        for a, n in zip(start, self.layout.size))
+            out[idx] = block.to(out.device)
+        return out
+
+    def cut(self, full: torch.Tensor) -> "Sharded":
+        """``full`` (this tensor's shape) cut into this placement's
+        blocks, each a tensor of its own (a view would keep ``full``
+        alive) on its block's device."""
+        if tuple(full.shape) != self.shape:
+            raise ValueError(f"cut: {tuple(full.shape)} is not the placed "
+                             f"shape {self.shape}")
+        out = []
+        for start, i in zip(self.layout.starts, self.layout.first):
+            piece = full
+            for dim, (a, n) in enumerate(zip(start, self.layout.size)):
+                if n != full.shape[dim]:
+                    piece = piece.narrow(dim, a, n)
+            dev = self.mesh.devices[i]
+            if piece.device != dev:
+                piece = piece.to(dev)
+            elif self.layout.splits > 1:
+                piece = piece.clone(memory_format=torch.contiguous_format)
+            out.append(piece)
+        return self.with_blocks(out)
+
+    def total_along(self, parts: list, dim: int) -> list:
+        """``parts[j]``: block ``j``'s partial sum over ``dim`` of the
+        placed tensor.  Returns, per block, the sum of the partials of
+        every block that differs from it only along ``dim`` (the grouped
+        ``psum`` over the axes that split ``dim``), in order along
+        ``dim``, on each block's device."""
+        dim %= len(self.shape)
+        groups: dict = {}
+        for j, start in enumerate(self.layout.starts):
+            key = (self.blocks[j].device,
+                   start[:dim] + start[dim + 1:])
+            groups.setdefault(key, []).append(j)
+        out = [None] * len(parts)
+        for members in groups.values():
+            members.sort(key=lambda j: self.layout.starts[j][dim])
+            total = parts[members[0]]
+            for j in members[1:]:
+                total = total + parts[j].to(total.device)
+            for j in members:
+                out[j] = total
+        return out
+
+
+def place(x: torch.Tensor, spec, mesh) -> Sharded:
+    """``x`` placed on ``mesh`` by ``spec``: each distinct block a tensor
+    of its own on its shard's device."""
+    spec = P(*spec)
+    lay = layout(tuple(x.shape), spec, mesh)
+    return Sharded([], lay, spec, mesh, x.shape).cut(x)
+
+
+def place_tree(tree, spec_tree, mesh):
+    """Every tensor leaf of ``tree`` placed by the matching leaf of
+    ``spec_tree`` (the reference's ``jax.device_put(tree, named(mesh,
+    spec_tree))``); numpy leaves are made tensors first."""
+    specs = TR.leaves(spec_tree)
+    leaves = TR.leaves(tree)
+    if len(specs) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves and {len(specs)} specs")
+    out = []
+    for x, spec in zip(leaves, specs):
+        if not isinstance(x, torch.Tensor):
+            x = torch.as_tensor(x)
+        out.append(place(x, spec, mesh))
+    return TR.unflatten_like(tree, out)
+
+
+def join_tree(tree):
+    """The inverse of ``place_tree``: every :class:`Sharded` leaf joined
+    into its full tensor; other leaves as they are."""
+    return TR.map_structure(
+        lambda x: x.join() if isinstance(x, Sharded) else x, tree)
+
+
+def shard_bytes(tree, spec_tree, mesh) -> int:
+    """Bytes one shard holds of ``tree`` (tensors or meta tensors) placed
+    by ``spec_tree`` on ``mesh``; every shard holds as many."""
+    total = 0
+    for x, spec in zip(TR.leaves(tree), TR.leaves(spec_tree)):
+        splits = layout(tuple(x.shape), P(*spec), mesh).splits
+        total += math.prod(x.shape) // splits * x.element_size()
+    return total
+
+
+def stored_bytes(tree) -> int:
+    """Bytes of every distinct block of the :class:`Sharded` leaves of
+    ``tree`` (the whole tree stored once on one device)."""
+    return sum(b.numel() * b.element_size() for x in TR.leaves(tree)
+               if isinstance(x, Sharded) for b in x.blocks)

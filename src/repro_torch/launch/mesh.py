@@ -182,7 +182,8 @@ class Mesh:
         """On a descriptor mesh, raise unless every device can hold
         ``shard_bytes`` for each shard placed on it -- what ``what``
         would hold on one real device per shard.  Other meshes run
-        whatever their devices hold."""
+        whatever their devices hold, and so does a mesh of ``meta``
+        devices (the dry run's: shapes only, nothing allocated)."""
         if not self.descriptor:
             return
         per_dev = collections.Counter(self.devices)
@@ -198,7 +199,9 @@ class Mesh:
                     f"reduced config runs on it)")
 
 
-def _device_bytes(dev: torch.device) -> int:
+def _device_bytes(dev: torch.device) -> float:
+    if dev.type == "meta":
+        return math.inf
     if dev.type == "cuda":
         return int(torch.cuda.get_device_properties(dev).total_memory)
     return int(os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES"))

@@ -52,7 +52,9 @@ def test_every_module_imports_with_jax_blocked():
               "repro_torch.configs.dna_suffix", "repro_torch.training",
               "repro_torch.training.optimizer",
               "repro_torch.training.train_step",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train", "repro_torch.launch.dryrun",
+              "repro_torch.launch.roofline",
+              "repro_torch.checkpoint.manager"):
         assert m in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

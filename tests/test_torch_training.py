@@ -189,9 +189,12 @@ def _argv(steps, ckpt=None, every=2):
 def test_launcher_lines_and_resume(tmp_path, capsys):
     full = plaunch.main(_argv(6) + ["--device", CPU])
     out = _lines(capsys.readouterr().out)
-    assert len(out) == 7
-    assert all(LINE.match(l) for l in out[:6]), out
+    assert len(out) == 8
+    assert out[0].startswith("[mesh  ] axes={'data': 1, 'model': 1} "
+                             "shards=1 descriptor=False"), out[0]
+    assert all(LINE.match(l) for l in out[1:7]), out
     assert DONE.match(out[-1]), out[-1]
+    first_steps = out[1:3]
     d = str(tmp_path / "ck")
     first = plaunch.main(_argv(4, d) + ["--device", CPU])
     capsys.readouterr()
@@ -200,8 +203,11 @@ def test_launcher_lines_and_resume(tmp_path, capsys):
     assert out[0] == "[resume] from checkpoint step 4"
     assert first == full[:4]
     assert rest == full[4:]                 # deterministic on the CPU
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plaunch.main(_argv(2) + ["--device", CPU, "--mesh", "single"])
+    # the production mesh as 256 CPU shards: the same step lines
+    plaunch.main(_argv(2) + ["--device", CPU, "--mesh", "single"])
+    out = _lines(capsys.readouterr().out)
+    assert "shards=256 descriptor=True" in out[0]
+    assert out[1:3] == first_steps
 
 
 def _reference_launcher(steps, ckpt=None, every=2):
@@ -243,8 +249,9 @@ def test_launcher_checkpoints_cross_packages(tmp_path, capsys):
     got = plaunch.main(_argv(4, d) + ["--device", CPU])
     out = _lines(capsys.readouterr().out)
     assert out[0] == "[resume] from checkpoint step 2"
-    assert all(LINE.match(l) for l in out[1:3]), out
-    assert [l.split()[1] for l in out[1:3]] == ["2", "3"]
+    assert out[1].startswith("[mesh  ] "), out[1]
+    assert all(LINE.match(l) for l in out[2:4]), out
+    assert [l.split()[1] for l in out[2:4]] == ["2", "3"]
     np.testing.assert_allclose(got, want[2:], rtol=1e-5)
     jc = jget(ARCH).reduced()
     like = jinit(jc, JOpt(lr=3e-4, warmup_steps=5, total_steps=10),
