@@ -72,10 +72,11 @@ through the public entry points at chromosome scale:
                  one-shot count, ``[write ]``'s rise against the planted
                  occurrences, and the feed must hold the reference's rows;
 16. ``[staged]`` ``SuffixTable.create(max_device_bytes=100,663,296)``
-                 over the same 2**26 bases (16 chunks of 2**22 rows, each
-                 sorted on the card as sub-chunks that fit the budget),
-                 the SA streamed into the snapshot shard by shard: the
-                 snapshot's SA must equal ``[build]``'s on every row and
+                 over the first 2**25 of those bases (8 chunks of 2**22
+                 rows, each sorted on the card as sub-chunks that fit the
+                 budget), the SA streamed into the snapshot shard by
+                 shard: the snapshot's SA must equal an in-memory build's
+                 on every row and
                  the build's measured device peak stay within the budget
                  (``[sort-footprint]`` gives one chunk sort's bytes a
                  row); a second staged build of 2**24 bases spilled to a
@@ -84,8 +85,8 @@ through the public entry points at chromosome scale:
                  third of 2**20 bases with ``staged=True`` and no budget
                  must sort each 2**16-row chunk whole, one sort a chunk
                  a round (``[staged:whole]``); the staged table reopened
-                 serves the workload, equal to ``[count]``
-                 (``[staged-served]``);
+                 serves the workload, equal to the in-memory build's
+                 answers (``[staged-served]``);
 17. ``[plane]``  one unflushed append of 2**17 bases to that table, then
                  ``ServingPlane.deploy`` (4 tablets x 2 replicas of numpy
                  tablet workers over the snapshot, the owner replaying
@@ -97,6 +98,13 @@ through the public entry points at chromosome scale:
                  answers; ``count`` again after ``kill -9`` of one
                  replica of tablet 0, and after its restart one batch of
                  ``scan(top_k=4)`` and the text CRC it had before;
+                 ``[plane:hedged]``: the paper's workload (1,000 queries
+                 in batches of 50) through ``HedgedScanService`` over the
+                 plane's ``RemoteTable``, hedged off and on: the routed
+                 batches' wall ms, the router's RPCs and backup RPCs per
+                 arm, each arm's answers (``found``, ``count``,
+                 ``first_pos``) equal to the card table's on the same
+                 seeds, query by query;
 18. ``[mesh]``   ``REPRO_TORCH_HOST_DEVICES=8`` in the process: 8
                  tablets of 2**23 rows on the card.  ``[mesh:build]``
                  ``SuffixTable.from_codes`` of the 2**26 bases (the
@@ -137,7 +145,23 @@ through the public entry points at chromosome scale:
                  numpy gram set, on each store and on a table after an
                  append; build, ``adjacent_lcp`` (seconds, device peak)
                  and queries/s;
-20. ``[lm]``     after the search phases have released the card:
+20. ``[paper]``  after the search phases have released the card: the
+                 paper's case study at chr1's length through
+                 ``examples/dna_search_torch.py`` (248,956,422 seeded
+                 bases into a table created under ``build/``, Tables
+                 III, IV and V and the hedged run of 10,000 queries
+                 each, locate, an 8-base probe streamed in pages of
+                 100 and resumed from its cursor, the straddling
+                 append, compact and reopen); every answer of the three
+                 runs (``found``, ``count``, ``first_pos``) held against
+                 the plain search on the card, every found ``first_pos``
+                 against the seeded text, the 16 longest found and 16
+                 shortest missed patterns counted by brute force, the
+                 hit rate within 5 sigma of the random-text expectation
+                 (0.1386), Table V's correlations and Table IV's tail;
+    ``[examples]`` the four example scripts of the port at their
+                 default sizes on the card (their own asserts; seconds);
+21. ``[lm]``     after those phases:
                  qwen3-0.6b at full width in fp32 from seeded weights:
                  ``greedy_generate`` of 8 prompts of 512 tokens, 64 new,
                  ``max_len`` 1024, and the same through ``make_prefill_fn``
@@ -169,10 +193,11 @@ through the public entry points at chromosome scale:
                  ``[lm:shard:pipe]`` (in ``[lm:train]``) qwen3 as 4 GPipe
                  stages against the plain stack, ``[lm:shard:compress]``
                  its 8 row gradients through the int8 exchange;
-21. ``[kernels]`` every kernel's launches on each of the ten paths
+22. ``[kernels]`` every kernel's launches on each of the thirteen paths
                  (serving 1-8, compaction 9-10, persistence 11-12, long 13,
-                 client 14, serve 15, staged 16, plane 17, mesh 18,
-                 dedup 19; the [lm] path runs no kernel of its own: its
+                 client 14, serve 15, staged 16, plane 17 and its hedged
+                 run, mesh 18, dedup 19, paper and examples 20; the [lm]
+                 path runs no kernel of its own: its
                  matmuls and attention are plain torch, as the
                  reference's are plain jnp; the
                  counts are set to 0 before each and read after it) and
@@ -238,17 +263,26 @@ FROZEN_SLICE = 2**22        # [long]: bases of the frozen table
 LONG_TABLET_ROWS = 2**20    # [long]: sorted rows tablet_scan is held on
 CALLERS = 128               # [client]: callers per wave
 CLIENT_WAVES = 8
+STAGED_LEN = 2**25          # [staged]: the first 2**25 bases of [build]'s
 STAGED_BUDGET = 100_663_296 # [staged]: max_device_bytes -> 2**22-row chunks
 SPILL_LEN = 2**24           # [staged]: bases of the spilled build
 WHOLE_LEN = 2**20           # [staged]: bases of the build without a budget
 PLANE_TABLETS = 4           # [plane]: tablets x replicas
 PLANE_REPLICAS = 2
 PLANE_LOCATE = 2048         # [plane]: patterns located one call each
+PLANE_HEDGED_QUERIES = 1_000    # [plane:hedged]: the paper's workload
+PLANE_HEDGED_BATCH = 50         # (Table IV's 50 users) through the plane
+PLANE_HEDGED_SEED = 4
 MESH_TABLETS = 8            # [mesh]: tablets on the one card
 MESH_STAGED_LEN = 2**22     # [mesh:staged]: bases
 MESH_STAGED_BUDGET = 67_108_864  # [mesh:staged]: the card's bytes, 8 tablets
 MESH_TOO_SMALL = 6_400_000  # [mesh:staged]: a budget 8 tablets cannot share
 MESH_FOOTPRINT_ROWS = (2**14, 2**16)  # [mesh-sort-footprint]: a tablet's
+PAPER_LEN = 248_956_422     # [paper]: chr1's length (GRCh38), seeded bases
+PAPER_QUERIES = 10_000      # [paper]: each of Tables III, IV and hedged
+PAPER_CHECK_BATCH = 512     # [paper]: patterns a plain-search call
+PAPER_BRUTE = 16            # [paper]: found and missed patterns counted
+                            # by brute force over the seeded text
 DEDUP_SEED = 0              # [dedup]: corpora and windows
 DEDUP_DOCS = 16_384         # [dedup]: documents of DEDUP_DOC_LEN tokens
 DEDUP_DOC_LEN = 4_096
@@ -2005,6 +2039,354 @@ def lm_dryrun_phase(np, torch, check, smi) -> None:
         shutil.rmtree(out, ignore_errors=True)
 
 
+@contextlib.contextmanager
+def scratch_tempdir(prefix: str):
+    """Points ``tempfile``'s default directory at a fresh directory in
+    ``build/`` (the example scripts make their roots there) and removes
+    it afterwards."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    d = tempfile.mkdtemp(prefix=prefix, dir=os.path.join(ROOT, "build"))
+    old = tempfile.tempdir
+    tempfile.tempdir = d
+    try:
+        yield d
+    finally:
+        tempfile.tempdir = old
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def run_example(name: str, argv, tag: str) -> tuple:
+    """Runs ``examples/<name>.py``'s ``main(argv)`` in this process,
+    its lines printed under ``[tag:name]``; (what main returned,
+    seconds)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = mod.main(argv)
+    finally:
+        for ln in buf.getvalue().splitlines():
+            print(f"[{tag}:{name}] {ln}", flush=True)
+    return out, time.perf_counter() - t0
+
+
+def add_path_launches(rows, path: str, launches: dict) -> None:
+    """Adds one path's launches to every kernel row's
+    ``launches_by_path`` (``pattern_compare``: fused plus standalone, as
+    on the other paths)."""
+    for r in rows:
+        r["launches_by_path"][path] = (
+            launches["pattern_compare_fused"] + launches["pattern_compare"]
+            if r["name"] == "pattern_compare" else launches[r["name"]])
+
+
+def expected_hit_rate(n: int, lo: int, hi: int) -> float:
+    """The chance that a uniform random pattern of a uniform length in
+    [lo, hi] occurs in n uniform random bases: the mean over L of
+    1 - exp(-(n - L + 1) / 4**L) (occurrences as a Poisson count)."""
+    return sum(1.0 - math.exp(-(n - L + 1) / 4.0**L)
+               for L in range(lo, hi + 1)) / (hi - lo + 1)
+
+
+def examples_phase(np, torch, _build, check, smi, dev) -> dict:
+    """[examples]: the four example scripts of the port in this process
+    on the card at their default sizes (their own asserts hold).
+    Returns the path's launches."""
+    _build.reset_launches()
+    secs = {}
+    with scratch_tempdir("chip_smoke_examples_"):
+        for name in ("quickstart_torch", "corpus_dedup_torch",
+                     "dna_search_torch", "serve_queries_torch"):
+            _, secs[name] = run_example(name, ["--device", str(dev)],
+                                        "examples")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print("[examples] " + " ".join(f"{k}_seconds={v:.4f}"
+                                   for k, v in secs.items())
+          + f" card=\"{smi}\"", flush=True)
+    print("[examples-launches] " + " ".join(
+        f"{k}={v}" for k, v in launches.items()), flush=True)
+    for k in ("pack2bit", "bounded_search", "tier_scan"):
+        check(launches[k] > 0, f"{k} launched on the [examples] path")
+    return launches
+
+
+@contextlib.contextmanager
+def recorded_service_scans():
+    """While open, every ``HedgedScanService.scan`` batch is recorded:
+    yields a list of (the base store it was served from, ``None`` for a
+    remote table; packed patterns, lengths, found, count, first_pos, the
+    arrays on the host)."""
+    from repro_torch.serving import engine
+    inner = engine.HedgedScanService.scan
+    recorded = []
+
+    def recording_scan(self, patterns_packed, plen, hedged=True):
+        res, lat = inner(self, patterns_packed, plen, hedged=hedged)
+        recorded.append((None if self.is_remote else self.store, *(
+            engine._host(v) for v in (patterns_packed, plen, res.found,
+                                      res.count, res.first_pos))))
+        return res, lat
+
+    engine.HedgedScanService.scan = recording_scan
+    try:
+        yield recorded
+    finally:
+        engine.HedgedScanService.scan = inner
+
+
+def answers(np, recorded, i0: int = 0, i1: int = None) -> list:
+    """The recorded batches ``i0:i1`` as whole columns: [packed
+    patterns, lengths, found, count, first_pos]."""
+    return [np.concatenate([r[k] for r in recorded[i0:i1]])
+            for k in range(1, 6)]
+
+
+def brute_count_first(torch, text, pat) -> tuple:
+    """(count, smallest position) of ``pat`` in ``text`` (uint8 codes on
+    the card) from a compare at every position: no index is read."""
+    m = text.numel() - len(pat) + 1
+    hit = text[:m] == int(pat[0])
+    for k in range(1, len(pat)):
+        hit &= text[k:k + m] == int(pat[k])
+    at = torch.nonzero(hit).flatten()
+    return int(at.numel()), (int(at[0]) if at.numel() else -1)
+
+
+def paper_phase(np, torch, _build, check, smi, dev) -> tuple:
+    """[paper]: the paper's case study at chr1's length through
+    ``examples/dna_search_torch.py``: 248,956,422 seeded random bases
+    into a table created in a root under ``build/``, Tables III (batch
+    10), IV (batch 50) and V and the hedged run of 10,000 queries each,
+    the locate, the stream, the straddling append, compact and reopen.
+    Then every answer of the three runs is held against the plain search
+    on the card, and against the seeded text: each found ``first_pos``
+    holds its pattern, and a few dozen patterns are counted by brute
+    force; the hit rate against the random-text expectation.  Returns
+    (the path's launches, peak device bytes)."""
+    from repro_torch.api import Database
+    from repro_torch.core import codec
+    from repro_torch.kernels.pattern_scan import bounded_match_plain
+
+    texts = []
+    inner_create = Database.create_table
+
+    def recording_create(self, name, codes, **kw):
+        texts.append(codes)
+        return inner_create(self, name, codes, **kw)
+
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    Database.create_table = recording_create
+    try:
+        with scratch_tempdir("chip_smoke_paper_"), \
+                recorded_service_scans() as recorded:
+            fig, secs = run_example(
+                "dna_search_torch",
+                ["--text-len", str(PAPER_LEN), "--queries",
+                 str(PAPER_QUERIES), "--device", str(dev)], "paper")
+    finally:
+        Database.create_table = inner_create
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    # every answer of the three runs against the plain search on the base
+    # store they were served from, the recorded batches in batches of
+    # PAPER_CHECK_BATCH
+    store = recorded[0][0]
+    one_store = all(r[0] is store for r in recorded)
+    n_calls = len(recorded)
+    pp, plen, *got = answers(np, recorded)
+    recorded.clear()
+    t0 = time.perf_counter()
+    want = [[], [], []]
+    for i in range(0, len(plen), PAPER_CHECK_BATCH):
+        found, count, rank, _pos = bounded_match_plain(
+            store, codec.as_tensor(pp[i:i + PAPER_CHECK_BATCH], dev),
+            codec.as_tensor(plen[i:i + PAPER_CHECK_BATCH], dev))
+        found, count, rank = (v.cpu().numpy() for v in (found, count, rank))
+        # text-order first_pos: the smallest position of the SA slice
+        first = np.full(count.shape, -1, np.int64)
+        for j in np.flatnonzero(found):
+            r0 = store.pad_count + int(rank[j])
+            first[j] = int(store.sa[r0:r0 + int(count[j])].min())
+        for k, v in enumerate((found, count, first)):
+            want[k].append(v)
+    plain_s = time.perf_counter() - t0
+    want = [np.concatenate(w) for w in want]
+    mism = {k: int((np.asarray(g).astype(np.int64)
+                    != np.asarray(w).astype(np.int64)).sum())
+            for k, g, w in zip(("found", "count", "first_pos"), got, want)}
+    del store
+
+    # the answers against the seeded text itself, which no SA has read:
+    # every found first_pos holds its pattern, and the 16 longest found
+    # and 16 shortest missed patterns are counted by brute force
+    text = texts.pop()
+    pats = codec.unpack_2bit_batch(pp, pp.shape[1] * codec.BASES_PER_WORD)
+    found, count, first = got
+    hit_idx = np.flatnonzero(found)
+    holds = sum(int(np.array_equal(text[f:f + L], pats[j, :L]))
+                for j, f, L in zip(hit_idx, first[hit_idx], plen[hit_idx]))
+    miss_idx = np.flatnonzero(~found.astype(bool))
+    picks = np.concatenate([
+        hit_idx[np.argsort(-plen[hit_idx], kind="stable")[:PAPER_BRUTE]],
+        miss_idx[np.argsort(plen[miss_idx], kind="stable")[:PAPER_BRUTE]]])
+    t0 = time.perf_counter()
+    text_dev = torch.from_numpy(text).to(dev)
+    brute = [brute_count_first(torch, text_dev, pats[j, :plen[j]])
+             for j in picks]
+    torch.cuda.synchronize()
+    brute_s = time.perf_counter() - t0
+    brute_bad = sum(int((c, f) != (int(count[j]), int(first[j])))
+                    for (c, f), j in zip(brute, picks))
+    del text_dev, text
+
+    ing, t3, t4, hd = (fig["ingest"], fig["table_iii"], fig["table_iv"],
+                       fig["hedged"])
+    expect = expected_hit_rate(PAPER_LEN, 1, 100)
+    sigma = math.sqrt(expect * (1 - expect) / PAPER_QUERIES)
+    z = {k: (st["hit_rate"] - expect) / sigma
+         for k, st in (("iii", t3), ("iv", t4), ("hedged", hd))}
+    print(f"[paper] n={PAPER_LEN} seconds={secs:.4f} "
+          f"ingest_seconds={ing['seconds']:.4f} "
+          f"mbase_per_s={ing['mbase_per_s']:.4f} "
+          f"ingest_peak_bytes={ing['device_peak_bytes']} "
+          f"disk_bytes={ing['disk_bytes']} phase_peak_bytes={peak} "
+          f"compact_seconds={fig['compact']['seconds']:.4f} "
+          f"open_seconds={fig['compact']['open_seconds']:.4f} "
+          f"service_calls={n_calls} card=\"{smi}\"", flush=True)
+    for tag, st in (("III", t3), ("IV", t4), ("hedged", hd)):
+        print(f"[paper:{tag}] " + " ".join(
+            f"{k}={v}" for k, v in st.items()), flush=True)
+    print(f"[paper:check] answers={len(plen)} "
+          f"mismatches={json.dumps(mism)} plain_seconds={plain_s:.4f} "
+          f"found={len(hit_idx)} first_pos_holds_pattern={holds} "
+          f"brute_force={len(picks)} brute_force_lens="
+          f"{','.join(str(int(plen[j])) for j in picks)} "
+          f"brute_force_mismatches={brute_bad} "
+          f"brute_force_seconds={brute_s:.4f} "
+          f"expected_hit_rate={expect:.6f} sigma={sigma:.6f} "
+          f"z={json.dumps(z)}", flush=True)
+    st = fig["stream"]
+    print(f"[paper:stream] probe_len={len(st['probe'])} count={st['count']} "
+          f"first_page={st['first_page']} resumed={st['resumed']}",
+          flush=True)
+    print("[paper-launches] " + " ".join(
+        f"{k}={v}" for k, v in launches.items()), flush=True)
+    check(one_store and not texts and len(plen) == 3 * PAPER_QUERIES
+          and t3["n"] == t4["n"] == hd["n"] == PAPER_QUERIES,
+          "[paper] every query of the three runs went through the "
+          "service, all on the one base store")
+    check(not any(mism.values()),
+          "[paper] every answer (found, count, first_pos) of the three "
+          "runs equals the plain search's")
+    check(holds == len(hit_idx) > 0,
+          "[paper] every found first_pos holds its pattern in the seeded "
+          "text")
+    check(len(picks) == 2 * PAPER_BRUTE and brute_bad == 0,
+          "[paper] the brute-force count and first position of the "
+          "longest found and shortest missed patterns equal the answers")
+    check(abs(round(expect, 4) - 0.1386) < 1e-9,
+          "[paper] the random-text hit rate at chr1's length is 0.1386")
+    check(all(abs(v) <= 5 for v in z.values()),
+          "[paper] every run's hit rate is within 5 sigma of the "
+          "random-text expectation")
+    check(t4["corr_len_outcome"] < -0.3 and abs(t4["corr_len_time"]) < 0.1,
+          "[paper] Table V: corr(len, hit) < -0.3 and |corr(len, time)| "
+          "< 0.1")
+    check(t4["max_ms"] > 10 * t4["mean_ms"] and hd["max_ms"] < t4["max_ms"],
+          "[paper] Table IV's single-read max exceeds 10x its mean and the "
+          "hedged max is below it")
+    check(0 < st["first_page"] < st["count"]
+          and st["first_page"] + st["resumed"] == st["count"]
+          and fig["compact"]["reopened_count"] == fig["append"]["after"]
+          == fig["append"]["before"] + 1
+          and fig["compact"]["bases"] == PAPER_LEN + 507,
+          "[paper] the stream resumed from its cursor, the straddling "
+          "append and the reopened table's count")
+    for k in ("pack2bit", "bounded_search", "tier_scan"):
+        check(launches[k] > 0, f"{k} launched on the [paper] path")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, peak
+
+
+def plane_hedged_phase(np, torch, _build, check, smi, remote, table,
+                       db) -> dict:
+    """[plane:hedged]: the paper's workload (Table IV's batches of 50)
+    through ``HedgedScanService`` over the plane's ``RemoteTable``, hedged
+    off and on: its latencies are the routed batches' wall ms, the hedge
+    is the router's own backup RPC to another worker.  Each arm's answers
+    (``found``, ``count``, ``first_pos``) must equal the card table's
+    (``table``) on the same seeds, query by query.  Returns the path's
+    launches (the card arm's)."""
+    from repro_torch.serving import HedgedScanService
+    _build.reset_launches()
+    router = remote.router
+    hedged_arms = {}
+    with recorded_service_scans() as recorded:
+        for arm in (False, True):
+            st0 = router.stats()
+            i0 = len(recorded)
+            svc = HedgedScanService(remote, database=db)
+            st = svc.run_workload(
+                PLANE_HEDGED_QUERIES, batch=PLANE_HEDGED_BATCH,
+                hedged=arm, seed=PLANE_HEDGED_SEED)
+            hedged_arms[arm] = (st, st0, router.stats(), i0, len(recorded))
+        i0 = len(recorded)
+        card_stats = HedgedScanService(table, database=db).run_workload(
+            PLANE_HEDGED_QUERIES, batch=PLANE_HEDGED_BATCH, hedged=False,
+            seed=PLANE_HEDGED_SEED)
+        card = answers(np, recorded, i0)
+    for arm, (st, st0, st1, a0, a1) in hedged_arms.items():
+        ours = answers(np, recorded, a0, a1)
+        diff = {k: int((g.astype(np.int64) != w.astype(np.int64)).sum())
+                for k, g, w in zip(("found", "count", "first_pos"),
+                                   ours[2:], card[2:])}
+        print(f"[plane:hedged] hedged={str(arm).lower()} "
+              f"queries={st['n']} batch={PLANE_HEDGED_BATCH} "
+              f"wall_mean_ms={st['mean_ms']:.4f} "
+              f"wall_p99_ms={st['p99_ms']:.4f} "
+              f"wall_max_ms={st['max_ms']:.4f} "
+              f"rpcs={st1['rpcs'] - st0['rpcs']} "
+              f"hedge_fired={st1['hedge_fired'] - st0['hedge_fired']} "
+              f"hedge_wins={st1['hedge_wins'] - st0['hedge_wins']} "
+              f"hit_rate={st['hit_rate']} "
+              f"card_hit_rate={card_stats['hit_rate']} "
+              f"mismatches={json.dumps(diff)} "
+              f"hedge_enabled_after={str(router.hedge_enabled).lower()} "
+              f"card=\"{smi}\"", flush=True)
+        check(st["n"] == PLANE_HEDGED_QUERIES
+              and st["hit_rate"] == card_stats["hit_rate"]
+              and all(np.array_equal(g, w) for g, w in zip(ours[:2],
+                                                           card[:2]))
+              and not any(diff.values()),
+              f"[plane:hedged] hedged={arm}: every answer (found, count, "
+              f"first_pos) through the plane equals the card table's on "
+              f"the same patterns")
+    _, off0, off1, _, _ = hedged_arms[False]
+    check(off1["hedge_fired"] == off0["hedge_fired"]
+          and router.hedge_enabled,
+          "[plane:hedged] hedged=False fires no backup and leaves the "
+          "router's hedging as it was")
+    recorded.clear()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print("[plane-hedged-launches] " + " ".join(
+        f"{k}={v}" for k, v in launches.items()), flush=True)
+    for k in ("bounded_search", "tier_scan"):
+        check(launches[k] > 0,
+              f"{k} launched on the [plane:hedged] path (the card arm)")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2028,10 +2410,22 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
 
     rows, peak = search_paths(np, torch, check, smi)
-    # the LM phases run on a card that the search phases no longer hold
+    # [paper] and the LM phases run on a card that the search phases no
+    # longer hold
     gc.collect()
     torch.cuda.empty_cache()
+    from repro_torch.kernels import _build
     dev = torch.device("cuda")
+    paper_launches, paper_peak = paper_phase(np, torch, _build, check, smi,
+                                             dev)
+    peak = max(peak, paper_peak)
+    example_launches = examples_phase(np, torch, _build, check, smi, dev)
+    add_path_launches(rows, "paper", paper_launches)
+    add_path_launches(rows, "examples", example_launches)
+    print("[kernels:paths] " + " ".join(
+        f"{r['name']}:" + ",".join(f"{k}={v}" for k, v in
+                                   r["launches_by_path"].items())
+        for r in rows), flush=True)
     lm_phase(np, torch, check, dev, smi)
     peak = max(peak, lm_moe_phase(np, torch, check, dev, smi))
     peak = max(peak, lm_ssm_phase(np, torch, check, dev, smi))
@@ -2873,6 +3267,22 @@ def search_paths(np, torch, check, smi) -> tuple:
         check(serve_launches[k] > 0, f"{k} launched on the [serve] path")
 
     # ---------------- [staged] path: the out-of-core build --------------
+    # the in-memory build of the bases the staged build takes: [staged] is
+    # held to its SA and to its answers to the workload.  It is built and
+    # freed before the path's counts are set to 0, so that they count only
+    # the staged path's own launches
+    staged_codes = base[:STAGED_LEN]
+    mem = SuffixTable.from_codes(staged_codes, is_dna=True,
+                                 max_query_len=MAX_QUERY_LEN)
+    mem_sa = mem.store.sa[mem.store.pad_count:].cpu().numpy()
+    mem_out = [mem.scan(patterns[i:i + BATCH])
+               for i in range(0, N_QUERIES, BATCH)]
+    mem_counts = np.concatenate([o.count for o in mem_out])
+    mem_first = np.concatenate([o.first_pos for o in mem_out])
+    mem.close()
+    del mem, mem_out
+    gc.collect()
+    torch.cuda.empty_cache()
     _build.reset_launches()
     from repro_torch.api import Database, Query
     from repro_torch.api import table as table_mod
@@ -2938,7 +3348,7 @@ def search_paths(np, torch, check, smi) -> tuple:
         BP._sort_chunk = timed_sort
         try:
             t0 = time.perf_counter()
-            stable = SuffixTable.create("staged", base, root=sroot,
+            stable = SuffixTable.create("staged", staged_codes, root=sroot,
                                         is_dna=True,
                                         max_query_len=MAX_QUERY_LEN,
                                         max_device_bytes=STAGED_BUDGET)
@@ -2972,16 +3382,15 @@ def search_paths(np, torch, check, smi) -> tuple:
         arrays, _ = CheckpointManager(os.path.join(sroot, "staged")
                                       ).restore_arrays(1)
         snap_sa = by_key(arrays)["sa_real"]
-        sa_ok = (np.array_equal(snap_sa, base_sa) and np.array_equal(
-            stable.store.sa[stable.store.pad_count:].cpu().numpy(),
-            base_sa))
-        del arrays, snap_sa
-        print(f"[staged] n={TEXT_LEN} rounds={b['rounds']} "
+        sa_ok = (np.array_equal(snap_sa, mem_sa) and np.array_equal(
+            stable.store.sa[stable.store.pad_count:].cpu().numpy(), mem_sa))
+        del arrays, snap_sa, mem_sa
+        print(f"[staged] n={STAGED_LEN} rounds={b['rounds']} "
               f"chunks={b['n_chunks']}x{b['chunk_rows']} "
               f"sort_rows={sort_rows} runs_per_round="
-              f"{-(-TEXT_LEN // sort_rows)} seconds={staged_s:.4f} "
+              f"{-(-STAGED_LEN // sort_rows)} seconds={staged_s:.4f} "
               f"build_seconds={b['elapsed_s']:.4f} "
-              f"mbase_per_s={TEXT_LEN / b['elapsed_s'] / 1e6:.4f} "
+              f"mbase_per_s={STAGED_LEN / b['elapsed_s'] / 1e6:.4f} "
               f"sort_seconds={sort_s[0]:.4f} host_share="
               f"{1 - sort_s[0] / b['elapsed_s']:.4f} "
               f"measured_peak_bytes={build_peaks[0]} "
@@ -2990,14 +3399,15 @@ def search_paths(np, torch, check, smi) -> tuple:
               f"sort_bytes_per_row={build_peaks[0] / sort_rows:.4f} "
               f"shards={n_shards} sa_equals_build={str(sa_ok).lower()} "
               f"card=\"{smi}\"", flush=True)
-        check(b["mode"] == "staged" and b["n_chunks"] == 16,
-              "[staged] the budget gave 16 chunks of 2**22 rows")
+        check(b["mode"] == "staged" and b["n_chunks"] == STAGED_LEN >> 22,
+              "[staged] the budget gave chunks of 2**22 rows")
         check(build_peaks[0] <= STAGED_BUDGET,
               "[staged] the build's measured device peak is within "
               "max_device_bytes")
         check(sa_ok, "[staged] the snapshot's SA equals the in-memory "
-              "[build] SA on every row")
-        check(n_shards == 16, "[staged] the SA was streamed as 16 shards")
+              "build's on every row")
+        check(n_shards == STAGED_LEN >> 22,
+              "[staged] the SA was streamed a shard a chunk")
         sb = spilled.stats()["build"]
         small_sa = build_suffix_array(torch.from_numpy(small).to(dev))
         spill_ok = torch.equal(
@@ -3041,10 +3451,10 @@ def search_paths(np, torch, check, smi) -> tuple:
         print(f"[staged:open] seconds={reopen_s:.4f} "
               f"mode={staged.stats()['build']['mode']}", flush=True)
         sc, sf = serve("staged-served", staged)
-        check(np.array_equal(sc, base_counts)
-              and np.array_equal(sf, base_first),
+        check(np.array_equal(sc, mem_counts)
+              and np.array_equal(sf, mem_first),
               "[staged] the reopened staged table's counts and first_pos "
-              "equal [count]")
+              "equal the in-memory build's")
         torch.cuda.synchronize()
         staged_launches = dict(_build.LAUNCHES)
         print(f"[staged-launches] " + " ".join(
@@ -3118,7 +3528,7 @@ def search_paths(np, torch, check, smi) -> tuple:
         scan_ok = same(card_scan, plane_scan)
         fo_ok = same(card_count, failed_over) and same(card_scan[:1], again)
         print(f"[plane] tablets={PLANE_TABLETS} replicas={PLANE_REPLICAS} "
-              f"n_base={TEXT_LEN} delta={ost['delta_len']} "
+              f"n_base={STAGED_LEN} delta={ost['delta_len']} "
               f"owner_wal_replayed={ost['wal_records_replayed']} "
               f"up_seconds={up_s:.4f} queries={N_QUERIES} "
               f"count_queries_per_s={N_QUERIES / plane_s:.1f} "
@@ -3155,6 +3565,9 @@ def search_paths(np, torch, check, smi) -> tuple:
         for k in ("bounded_search", "tier_scan"):
             check(plane_launches[k] > 0, f"{k} launched on the [plane] "
                   f"path")
+
+        plane_hedged_launches = plane_hedged_phase(
+            np, torch, _build, check, smi, remote, staged, pdb)
         staged.close()
         del staged
     finally:
@@ -3455,6 +3868,7 @@ def search_paths(np, torch, check, smi) -> tuple:
                "persist": persist_launches, "long": long_launches,
                "client": client_launches, "serve_cli": serve_launches,
                "staged": staged_launches, "plane": plane_launches,
+               "plane_hedged": plane_hedged_launches,
                "mesh": mesh_launches, "dedup": dedup_launches}
     Q.query = search
     print(f"[locate] {json.dumps({p: located[i].tolist() for i, p in enumerate(loc_pats)})}",

@@ -91,8 +91,8 @@ def table_fm_dir(root: str, name: str) -> str:
 def table_tablets_dir(root: str, name: str) -> str:
     """Directory of ``name``'s serving-plane tablet map (the reference's
     ``manifest.json`` and ``serving.json``); inside the table directory,
-    so drop and reconcile remove it with the table.  The port has no
-    serving plane yet; the layout is the reference's."""
+    so drop and reconcile remove it with the table; the layout is the
+    reference's."""
     return os.path.join(root, name, "tablets")
 
 

@@ -48,7 +48,7 @@ from __future__ import annotations
 import os
 import shutil
 import time
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -1043,3 +1043,6 @@ def open_table(name: str, *, root: Optional[str] = None,
                **kw) -> SuffixTable:
     """``SuffixTable.open`` under its older spelling, one call deep."""
     return SuffixTable.open(name, root=root, **kw)
+
+
+TableLike = Union[SuffixTable, TabletStore]

@@ -19,6 +19,7 @@ reach the table as numpy; the table searches them on its device.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -120,11 +121,14 @@ class HedgedScanService:
     771 ms events).  A backup request fires after ``hedge_deadline_ms``;
     effective latency is min(primary, deadline + backup).  Scan RESULTS
     come from the real engine (on the table's device); only latency is
-    simulated, as in the reference.  (The reference also serves a routed
-    ``RemoteTable`` with real hedged RPCs; the port has no serving plane
-    yet.)
+    simulated — UNLESS the served table is a
+    :class:`~repro_torch.serving.router.RemoteTable`: then the hedge is a
+    real second RPC to a different worker process (the router's replica
+    machinery — ``hedged=`` toggles it per call) and the reported
+    latency is the real measured wall time of the routed batch, so the
+    same Table III/IV statistics compare simulated and genuine hedging.
     """
-    table: "object"                  # SuffixTable | TabletStore (shim)
+    table: "object"          # SuffixTable | RemoteTable | TabletStore
     replicas: int = 2
     base_ms: float = 5.0
     sigma: float = 0.35
@@ -138,10 +142,11 @@ class HedgedScanService:
     def __post_init__(self):
         from repro_torch.api import Database
         from repro_torch.api.table import SuffixTable
+        self.is_remote = bool(getattr(self.table, "is_remote", False))
         if isinstance(self.table, TabletStore):
             self.table = SuffixTable.from_store(self.table,
                                                 planner=self.planner)
-        if self.planner is None:
+        if self.planner is None and not self.is_remote:
             self.planner = self.table.planner
         if self.database is None:
             self.database = Database.in_memory()
@@ -172,6 +177,22 @@ class HedgedScanService:
         q = Query(table=self.table_name, kind="scan",
                   codes=_host(patterns_packed), lens=_host(plen))
         n = int(q.lens.shape[0])
+        if self.is_remote:
+            # real plane: toggle the router's genuine hedging per call
+            # and report measured wall latency (every query of the batch
+            # experienced the same routed dispatch)
+            router = self.table.router
+            prev = router.hedge_enabled
+            router.hedge_enabled = bool(hedged)
+            try:
+                t0 = time.perf_counter()
+                res = self.database.query(q)
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                router.hedge_enabled = prev
+            if not res.ok:
+                raise RuntimeError(f"scan failed: {res.error}")
+            return res, np.full(n, wall_ms)
         res = self.database.query(q)
         if not res.ok:
             raise RuntimeError(f"scan failed: {res.error}")
@@ -194,7 +215,8 @@ class HedgedScanService:
         up front — the planner rejects over-cap patterns per batch, so an
         invalid workload would otherwise crash midway with partial work
         done and an opaque traceback."""
-        cap = int(self.planner.max_pattern_len)
+        cap = int(self.planner.max_pattern_len if self.planner is not None
+                  else self.table.max_query_len)
         if max_len > cap:
             raise ValueError(
                 f"run_workload max_len={max_len} exceeds the table's "

@@ -101,6 +101,9 @@ def test_plane_modules_import_with_torch_blocked():
     *[os.path.join(r, f) for r, _d, fs in os.walk(PKG) for f in fs
       if f.endswith(".py")],
     os.path.join(REPO, "chip_smoke.py"),
+    *[os.path.join(REPO, "examples", f)
+      for f in os.listdir(os.path.join(REPO, "examples"))
+      if f.endswith("_torch.py")],
 ]), ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_or_repro_import(path):
     for name in _imported_names(path):

@@ -268,6 +268,72 @@ def test_owner_replays_wal_tail_as_the_reference(env):
 
 
 # ---------------------------------------------------------------------------
+# the paper's workload through HedgedScanService over the plane
+# ---------------------------------------------------------------------------
+def _record_scans(monkeypatch, service_cls) -> list:
+    """Every batch ``service_cls.scan`` answers from now on, as host
+    arrays (packed patterns, lengths, found, count, first_pos)."""
+    inner = service_cls.scan
+    recorded = []
+
+    def scan(self, patterns_packed, plen, hedged=True):
+        res, lat = inner(self, patterns_packed, plen, hedged=hedged)
+        recorded.append([np.asarray(v) for v in (
+            patterns_packed, plen, res.found, res.count, res.first_pos)])
+        return res, lat
+
+    monkeypatch.setattr(service_cls, "scan", scan)
+    return recorded
+
+
+@pytest.mark.parametrize("hedged", [False, True])
+def test_hedged_scan_service_over_the_plane(env, monkeypatch, hedged):
+    """``HedgedScanService`` serves a ``RemoteTable`` as the reference's
+    does: no planner, the pattern cap from ``max_query_len``, the
+    router's real hedging toggled per call and restored after it.  The
+    statistics of 200 queries in batches of 50, and every answer
+    (``found``, ``count``, ``first_pos``), equal the reference service's
+    over the reference's plane, on the same seeds (wall latencies are
+    not compared)."""
+    from repro.api import Database as JDatabase
+    from repro.serving import HedgedScanService as JService
+    from repro_torch.serving import HedgedScanService
+    ours_rec = _record_scans(monkeypatch, HedgedScanService)
+    ref_rec = _record_scans(monkeypatch, JService)
+
+    router = env.remote.router
+    fired = []
+    call_hedged = router._call_hedged
+    monkeypatch.setattr(router, "_call_hedged",
+                        lambda *a: fired.append(a) or call_hedged(*a))
+    assert router.hedge_enabled
+    svc = HedgedScanService(env.remote, database=env.db)
+    assert svc.is_remote and svc.planner is None and svc.table_name == ALIAS
+    kw = dict(batch=50, max_len=64, hedged=hedged, seed=5)
+    ours = svc.run_workload(200, **kw)
+    assert router.hedge_enabled                 # restored after each call
+    assert bool(fired) == hedged                # toggled during it
+    with pytest.raises(ValueError, match="pattern cap 64"):
+        svc.run_workload(10, max_len=65)
+
+    jdb = JDatabase.in_memory()
+    try:
+        ref = JService(env.ref_remote, database=jdb).run_workload(200, **kw)
+    finally:
+        jdb.close()
+    assert ours["n"] == 200
+    for k in ("n", "hit_rate", "mean_len", "corr_len_outcome"):
+        assert ours[k] == ref[k], k
+    assert 0.0 < ours["hit_rate"] < 1.0
+    assert len(ours_rec) == len(ref_rec) == 4
+    for k, name in enumerate(("patterns", "plen", "found", "count",
+                              "first_pos")):
+        got = np.concatenate([r[k] for r in ours_rec])
+        want = np.concatenate([r[k] for r in ref_rec])
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
 # admission control
 # ---------------------------------------------------------------------------
 def test_tenant_quota_sheds_typed_overloaded(env):
