@@ -1,0 +1,7 @@
+"""95th percentile of request latency, from submit to the answer in the
+caller's hand, over every request of the window."""
+import numpy as np
+
+
+def read(w):
+    return float(np.percentile(w.lat_ms, 95)) if w.lat_ms.size else None

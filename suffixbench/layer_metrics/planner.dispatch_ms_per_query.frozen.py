@@ -1,0 +1,12 @@
+"""The planner's ``dispatch_*`` spans (the ``fm_scan`` launch and what it
+waits for) over the patterns answered: ``planner.dispatch_ms_per_query``
+of the frozen cells, which report ``queries_per_s.frozen``."""
+
+
+def read(ctx):
+    spans = [v for k, v in ctx.counters.items()
+             if k.startswith("table.dispatch_")]
+    total = sum(s for s, _n in spans)
+    n = sum(c for _s, c in spans)
+    return total / ctx.segment_patterns if n and ctx.segment_patterns \
+        else None
