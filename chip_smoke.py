@@ -639,6 +639,17 @@ def profile_batches(torch, table, patterns, tag: str) -> None:
                tag, "batches=4")
 
 
+def device_kernels(events, device: str = "CUDA") -> list:
+    """The events of ``events`` (``key_averages()``) that ran on
+    ``device``, less the user annotations: a profiler range opened on a
+    recorded thread (``record_function``, and so every ``Tracer`` span
+    such as ``table.merge``) is also put on the device row over the
+    kernels it encloses, and counting it would count them twice."""
+    return [e for e in events
+            if str(getattr(e, "device_type", "")).endswith(device)
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def profile_fn(torch, fn, tag: str, what: str) -> None:
     """Device busy share of ``fn()`` (wall time to a synchronize) and its
     top kernels by device time, by torch.profiler."""
@@ -650,8 +661,7 @@ def profile_fn(torch, fn, tag: str, what: str) -> None:
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = [e for e in prof.key_averages()
-                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        kernels = device_kernels(prof.key_averages())
         dev_us = sum(getattr(e, "self_device_time_total", 0.0)
                      for e in kernels)
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]

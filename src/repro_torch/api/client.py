@@ -303,7 +303,7 @@ class QueryScheduler:
         self.stats = SchedulerStats()
         # span histograms (stats_snapshot()["latency"]): coalesce_wait,
         # admission, execute
-        self.tracer = Tracer()
+        self.tracer = Tracer("client")
         self._cv = threading.Condition()
         # one lock PER TABLE OBJECT serializes that table's scans and
         # client-side writes: the worker thread draining windowed waves

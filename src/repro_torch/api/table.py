@@ -160,7 +160,7 @@ class SuffixTable:
         self.fm: Optional[FMIndex] = None
         self.runs: list[Run] = []
         self._codes = np.asarray(codes)
-        self.tracer = Tracer()
+        self.tracer = Tracer("table")
         self._metrics: Optional[MetricsEmitter] = None
         self.planner: Optional[ScanPlanner] = None
         if _store is not None:                       # adopted as it is
@@ -776,7 +776,12 @@ class SuffixTable:
         reference gathers every slice into one flat array first; at
         chromosome scale a short pattern's slice holds millions of rows,
         and that gather dominated a batch.)  A frozen table has no SA:
-        its rows are LF-walked and min-reduced on the index's device."""
+        its rows are LF-walked and min-reduced on the index's device.
+
+        Spans (children of ``scan_batch``'s ``merge``): ``range_min``
+        covers the live reductions from the first launch through the
+        host copy that waits for them, ``lf_walk`` the frozen walks
+        through theirs.  A batch with no base match records neither."""
         B = int(base_count.shape[0])
         out = np.full(B, -1, np.int64)
         nz = np.flatnonzero((base_count > 0) & (base_rank >= 0))
@@ -785,14 +790,16 @@ class SuffixTable:
         starts = self.store.pad_count + base_rank[nz].astype(np.int64)
         if self.fm is not None:
             # real-SA row r is SA$ row r + 1
-            out[nz] = self.fm.segment_min_positions(
-                starts + 1, base_count[nz]).cpu().numpy()
+            with self.tracer.span("lf_walk"):
+                out[nz] = self.fm.segment_min_positions(
+                    starts + 1, base_count[nz]).cpu().numpy()
             return out
         sa = self.store.sa
         ends = starts + base_count[nz].astype(np.int64)
-        mins = torch.stack([sa[s:e].min()
-                            for s, e in zip(starts.tolist(), ends.tolist())])
-        out[nz] = mins.cpu().numpy()
+        with self.tracer.span("range_min"):
+            mins = torch.stack([sa[s:e].min() for s, e in
+                                zip(starts.tolist(), ends.tolist())])
+            out[nz] = mins.cpu().numpy()
         return out
 
     def scan_encoded(self, patt, plen, *, mode: Optional[str] = None
@@ -806,15 +813,23 @@ class SuffixTable:
                                                 plen, mode=mode)
         return merged
 
-    def _base_slice(self, base_count, base_rank, i) -> np.ndarray:
-        """Base-tier SA slice of row ``i``'s matches (suffix-rank order)."""
+    def _base_slice(self, base_count, base_rank, i, *,
+                    span: bool = False) -> np.ndarray:
+        """Base-tier SA slice of row ``i``'s matches (suffix-rank order).
+        On a frozen table the rows are LF-walked; ``span`` times that walk
+        as an ``lf_walk`` span (``scan_batch`` asks for it inside its
+        ``merge``; ``locate_range`` runs outside any ``merge`` and does
+        not)."""
         cb = int(base_count[i])
         if cb <= 0 or base_rank[i] < 0:
             return np.zeros((0,), np.int64)
         lb = self.store.pad_count + int(base_rank[i])
         if self.fm is not None:
             rows = torch.arange(lb + 1, lb + 1 + cb, dtype=torch.int64)
-            return self.fm.ranks_to_positions(rows).cpu().numpy()
+            if not span:
+                return self.fm.ranks_to_positions(rows).cpu().numpy()
+            with self.tracer.span("lf_walk"):
+                return self.fm.ranks_to_positions(rows).cpu().numpy()
         return self.store.sa[lb:lb + cb].cpu().numpy().astype(np.int64)
 
     def scan_batch(self, patt, plen, top_k: int = 0) -> ScanOutcome:
@@ -851,7 +866,8 @@ class SuffixTable:
                 if g.size and (first_pos[i] < 0 or g[0] < first_pos[i]):
                     first_pos[i] = int(g[0])
                 if top_k:
-                    run = self._base_slice(base_count, base_rank, i)
+                    run = self._base_slice(base_count, base_rank, i,
+                                           span=True)
                     cand = np.concatenate([run, g])
                     if cand.size > top_k:
                         cand = np.partition(cand, top_k - 1)[:top_k]

@@ -211,7 +211,7 @@ class ScanPlanner:
         self.cache_size = int(cache_size)
         self.max_pattern_len = int(max_pattern_len or store.max_query_len)
         self.stats = PlannerStats()
-        self.tracer = tracer if tracer is not None else Tracer()
+        self.tracer = tracer if tracer is not None else Tracer("planner")
         self._cache = TopKCache(self.cache_size)
         self._sa_host: Optional[np.ndarray] = None
         self._tablets: Optional[list] = None

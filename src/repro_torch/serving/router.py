@@ -148,7 +148,7 @@ class TabletRouter:
         # span histograms (stats()["latency"]): dispatch_remote (one
         # logical tablet read: hedge + failover walk) and hedge_wait
         # (hedge fired -> first success) — docs/observability.md
-        self.tracer = Tracer()
+        self.tracer = Tracer("router")
         self._quotas: dict[str, TokenBucket] = {}
         self.emitter = None
         if metrics_path is not None:

@@ -394,7 +394,7 @@ class TabletWorker:
         self._latency = LatencyWindow()
         # per-op span histograms (stats()["latency"]): scan / locate /
         # stats service time, same snapshot schema as every other tier
-        self.tracer = Tracer()
+        self.tracer = Tracer("tablet")
         self._queries = 0
         self._rpcs = 0
         self._t0 = time.time()
