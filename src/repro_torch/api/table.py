@@ -13,7 +13,10 @@ scan_tiers``), each tier owning the occurrences that END in its region.
 :meth:`freeze` (or the ``fm_threshold`` policy) moves the base onto a
 compressed FM index (``api.fm.FMIndex``) and drops the live suffix array
 and the device text; base reads then run the FM backward search, and
-text positions come from LF walks on the device.
+text positions come from LF walks on the device.  On either tier a DNA
+table answers the smallest base position of a pattern of 1..8 bases
+from a table of the base's k-mers (``api.kmers``), built anew with every
+base, and walks or reduces only the longer patterns' rows.
 
 Major compaction (:meth:`compact`, automatic at ``max_runs``) folds the
 runs and the memtable into the base by merging (``api.compaction``); a
@@ -53,6 +56,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.api import kmers
 from repro_torch.api.catalog import (Catalog, _check_name, default_root,
                                      table_fm_dir, table_wal_dir)
 from repro_torch.api.compaction import merge_delta_sa
@@ -158,6 +162,9 @@ class SuffixTable:
         self.max_runs = max_runs
         self.fm_threshold = fm_threshold
         self.fm: Optional[FMIndex] = None
+        # the base's smallest position of every 1..K-base pattern (DNA
+        # only; ``api.kmers``), rebuilt by every attach of a base
+        self._kmin: Optional[torch.Tensor] = None
         self.runs: list[Run] = []
         self._codes = np.asarray(codes)
         self.tracer = Tracer("table")
@@ -173,6 +180,7 @@ class SuffixTable:
                 routed_min_batch=routed_min_batch, tracer=self.tracer)
             if _planner is not None:
                 self.tracer = _planner.tracer
+            self._index_kmers()
         elif _fm is not None:                        # open(): frozen tier
             self.device = _fm.device
             self.mesh = None
@@ -431,6 +439,15 @@ class SuffixTable:
         else:
             self.planner.rebind(self.store)     # also drops any FM binding
         self.fm = None
+        self._index_kmers()
+
+    def _index_kmers(self) -> None:
+        """(Re)build the k-mer table of the base's codes on the table's
+        device: every attach of a base calls it, so no base swap leaves
+        it stale.  Token tables have none (a vocab of up to 64 would make
+        vocab**K entries)."""
+        self._kmin = (kmers.build(self._codes, self.device)
+                      if self.is_dna else None)
 
     def flush(self) -> None:
         """Persist the current state — base, sealed runs and the
@@ -567,6 +584,7 @@ class SuffixTable:
                 tracer=self.tracer, fm=fm)
         else:
             self.planner.rebind(self.store, fm=fm)
+        self._index_kmers()
 
     def _delta_codes(self) -> np.ndarray:
         """All un-compacted symbols (sealed runs + memtable), in order."""
@@ -767,24 +785,54 @@ class SuffixTable:
             np.int64).sum(axis=0)
         return merged, tres, delta, base_count
 
-    def _base_min_positions(self, base_count: np.ndarray,
-                            base_rank: np.ndarray) -> np.ndarray:
-        """Per query, the smallest BASE text position among its base-tier
-        matches (-1 when none): the min of each SA slice ``[lb, lb +
-        count)``, reduced in place on the store's device, one reduction
-        per matching query and one host copy for the batch.  (The
-        reference gathers every slice into one flat array first; at
-        chromosome scale a short pattern's slice holds millions of rows,
-        and that gather dominated a batch.)  A frozen table has no SA:
-        its rows are LF-walked and min-reduced on the index's device.
+    def _ranks_and_kmer_positions(self, merged: MatchResult, patt, plen):
+        """Host copies of the batch's base ranks and, on a DNA table, of
+        its k-mer table entries (``api.kmers.lookup``, -1 for a pattern
+        of more than K bases), read on the device and brought over in
+        the ranks' one copy; (ranks, None) on a token table."""
+        if self._kmin is None:
+            return merged.first_rank.cpu().numpy(), None
+        both = torch.stack([merged.first_rank.to(torch.int64),
+                            kmers.lookup(self._kmin, patt, plen)])
+        both = both.cpu().numpy()
+        return both[0], both[1]
 
-        Spans (children of ``scan_batch``'s ``merge``): ``range_min``
-        covers the live reductions from the first launch through the
-        host copy that waits for them, ``lf_walk`` the frozen walks
-        through theirs.  A batch with no base match records neither."""
+    def _base_min_positions(self, base_count: np.ndarray,
+                            base_rank: np.ndarray,
+                            kmer_pos: Optional[np.ndarray]) -> np.ndarray:
+        """Per query, the smallest BASE text position among its base-tier
+        matches (-1 when none).  A pattern with an entry in ``kmer_pos``
+        (the k-mer table's answers) takes it; the rest take the min of
+        their SA slice ``[lb, lb + count)``, reduced in place on the
+        store's device, one reduction per matching query and one host
+        copy for the batch.  (The reference gathers every slice into one
+        flat array first; at chromosome scale a short pattern's slice
+        holds millions of rows, and that gather dominated a batch.)  A
+        frozen table has no SA: its rows are LF-walked and min-reduced on
+        the index's device.
+
+        Counters, in a batch with a base match: ``kmer_patterns`` the
+        patterns answered from the k-mer table, ``slice_patterns`` those
+        left to a slice minimum and ``slice_rows`` the rows it reduces
+        or walks for them.  Spans (children of ``scan_batch``'s
+        ``merge``): ``range_min`` covers the live reductions from the
+        first launch through the host copy that waits for them,
+        ``lf_walk`` the frozen walks through theirs.  A batch with no
+        slice left records neither."""
         B = int(base_count.shape[0])
         out = np.full(B, -1, np.int64)
         nz = np.flatnonzero((base_count > 0) & (base_rank >= 0))
+        if nz.size == 0:
+            return out
+        n_kmer = 0
+        if kmer_pos is not None:
+            hit = kmer_pos[nz] >= 0
+            out[nz[hit]] = kmer_pos[nz[hit]]
+            n_kmer = int(hit.sum())
+            nz = nz[~hit]
+        self.tracer.count("kmer_patterns", n_kmer)
+        self.tracer.count("slice_patterns", int(nz.size))
+        self.tracer.count("slice_rows", int(base_count[nz].sum()))
         if nz.size == 0:
             return out
         starts = self.store.pad_count + base_rank[nz].astype(np.int64)
@@ -856,8 +904,10 @@ class SuffixTable:
             merged, _tres, delta, base_count = self._scan_tiers(patt, plen)
         with tr.span("merge"):
             count = merged.count.cpu().numpy().astype(np.int64)
-            base_rank = merged.first_rank.cpu().numpy()
-            first_pos = self._base_min_positions(base_count, base_rank)
+            base_rank, kmer_pos = self._ranks_and_kmer_positions(
+                merged, patt, plen)
+            first_pos = self._base_min_positions(base_count, base_rank,
+                                                 kmer_pos)
             positions = (np.full((B, top_k), -1, np.int64)
                          if top_k else None)
             for i in range(B):

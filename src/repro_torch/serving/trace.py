@@ -157,8 +157,9 @@ class Tracer:
     ``client``, ``router``, ...).  ``span(name)`` times a region (and is
     the profiler range ``<component>.<name>`` while one records);
     ``record(name, ms)`` logs an externally measured duration (e.g. a
-    queue wait computed from a stored submit timestamp); ``snapshot()``
-    is the ``stats()["latency"]`` payload."""
+    queue wait computed from a stored submit timestamp); ``count(name,
+    n)`` keeps a counter beside them; ``snapshot()`` is the
+    ``stats()["latency"]`` payload."""
 
     def __init__(self, component: str, *, ring_size: int = _DEFAULT_RING,
                  enabled: bool = True):
@@ -184,6 +185,12 @@ class Tracer:
             hist = self._spans.setdefault(name,
                                           SpanHistogram(self._ring_size))
         hist.record(float(ms))
+
+    def count(self, name: str, n: int) -> None:
+        """Adds ``n`` to the counter ``name``: a histogram of counts, one
+        sample a call, whose ``sum_ms`` in :meth:`snapshot` is the sum of
+        the counts and ``total`` the number of calls.  Opens no range."""
+        self.record(name, n)
 
     def snapshot(self) -> dict:
         """``{span_name: {p50_ms, p95_ms, p99_ms, n, total, sum_ms}}``,

@@ -460,7 +460,9 @@ def test_stats_schema_is_stable_and_documented():
     and planner counters apart from ``pad_slots``: the port pads no
     batch, so it stays 0 where the reference counts its bucket padding.
     Its latency spans may add the port's own (``dispatch_fused``, and
-    ``range_min``/``lf_walk`` inside ``merge``)."""
+    ``range_min``/``lf_walk`` inside ``merge``) and its counters of the
+    k-mer table (``kmer_patterns``, ``slice_patterns``,
+    ``slice_rows``)."""
     stats = {}
     for pkg in PKGS:
         db, table = _db_over(pkg, RC.random_dna(800, seed=12),
@@ -480,7 +482,8 @@ def test_stats_schema_is_stable_and_documented():
         set(r["tiers"]["resident_bytes"])
     assert set(s["latency"]["total"]) == set(r["latency"]["total"])
     assert set(s["latency"]) <= set(r["latency"]) | {
-        "dispatch_fused", "range_min", "lf_walk"}
+        "dispatch_fused", "range_min", "lf_walk", "kmer_patterns",
+        "slice_patterns", "slice_rows"}
     for k in ("mode", "n_bases", "rounds", "n_chunks", "chunk_rows",
               "peak_device_bytes", "spill_bytes"):
         assert s["build"][k] == r["build"][k], k

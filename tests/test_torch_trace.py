@@ -16,12 +16,18 @@ from torch._C._profiler import _ExperimentalConfig
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.api import Database, Query, SuffixTable
+from repro_torch.core.codec import decode_dna
 from repro_torch.core import query as Q
 from repro_torch.serving import trace
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src")
-PATTERNS = ["A", "CG", "GATTACA", "T" * 31]
+TEXT = np.random.default_rng(3).integers(0, 4, 3000).astype(np.uint8)
+# past the k-mer table's K bases and in the text, so a batch holding it
+# leaves a slice to reduce (live) or walk (frozen)
+LONG = decode_dna(TEXT[1000:1012])
+PATTERNS = ["A", LONG, "CG", "GATTACA", "T" * 31]
+SHORT = ["CG", "GATTACA"]     # base matches the k-mer table answers all
 NO_MATCH = ["ACGT" * 20]      # a batch of it alone has no base match
 
 
@@ -46,9 +52,8 @@ def _all_threads():
 
 
 def _db(frozen: bool):
-    text = np.random.default_rng(3).integers(0, 4, 3000).astype(np.uint8)
     db = Database.in_memory()
-    table = db.attach("dna", SuffixTable.from_codes(text, is_dna=True,
+    table = db.attach("dna", SuffixTable.from_codes(TEXT, is_dna=True,
                                                     device="cpu"))
     if frozen:
         table.freeze(sample_rate=4)
@@ -164,12 +169,16 @@ def test_worker_thread_ranges_nest_as_the_spans(frozen, child):
 @pytest.mark.parametrize("frozen,child", [(False, "range_min"),
                                           (True, "lf_walk")])
 def test_child_span_counts_the_batches_with_a_base_match(frozen, child):
+    """The child span counts the batches with a base match that leave a
+    slice to reduce or walk: one whose matches the k-mer table answers
+    all (``SHORT``) records none."""
     db, table = _db(frozen)
     try:
         _from_worker(db, [_raw_query(PATTERNS), _raw_query(NO_MATCH),
-                          _raw_query(PATTERNS[1:]), _raw_query(NO_MATCH)])
+                          _raw_query(PATTERNS[1:]), _raw_query(NO_MATCH),
+                          _raw_query(SHORT)])
         snap = table.tracer.snapshot()
-        assert snap["merge"]["total"] == 4
+        assert snap["merge"]["total"] == 5
         assert snap[child]["total"] == 2
         assert snap[child]["sum_ms"] <= snap["merge"]["sum_ms"]
         assert ({"range_min", "lf_walk"} - {child}).isdisjoint(snap)
@@ -258,8 +267,7 @@ def test_profiled_scan_on_the_card_counts_kernels_only():
     over the kernels it encloses."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    text = np.random.default_rng(3).integers(0, 4, 3000).astype(np.uint8)
-    table = SuffixTable.from_codes(text, is_dna=True, device="cuda")
+    table = SuffixTable.from_codes(TEXT, is_dna=True, device="cuda")
     table.scan(PATTERNS[1:])                               # warm, build
     torch.cuda.synchronize()
     table.clear_cache()
