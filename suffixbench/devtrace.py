@@ -7,6 +7,11 @@ traced stretch, so overlapping operations count once.  The idle gaps
 are the stretches between them, each named by the innermost host event
 (an operator or a CUDA runtime call, of any thread the profiler saw)
 that spans its middle, or ``host`` where none does.
+
+Each kernel also keeps the host time of the CUDA runtime call that
+launched it (the call with the kernel's correlation id), or -1 where the
+trace lost that call: what ties a launch to the call of the program
+that made it when the trace has lost some launches.
 """
 from __future__ import annotations
 
@@ -20,20 +25,27 @@ import numpy as np
 class DeviceTrace:
     window_s: float
     busy_s: float
-    kernels: dict            # name -> (start_ns, duration_ns) arrays, in order
+    kernels: dict            # name -> (start_ns, duration_ns, launch_ns)
+                             # arrays, in order
     device_ops: list         # [[name, seconds], ...] most time first
     idle_gaps: list          # [[host event, seconds], ...] longest first
 
     def kernel_ns(self, part: str) -> np.ndarray:
         """Durations (ns), in launch order, of the kernels whose name
         holds ``part``."""
-        found = [(s, d) for name, (s, d) in self.kernels.items()
-                 if part in name]
+        return self.kernel_launches(part)[1]
+
+    def kernel_launches(self, part: str) -> tuple[np.ndarray, np.ndarray]:
+        """(launch_ns, duration_ns), in launch order, of the kernels
+        whose name holds ``part``; ``launch_ns`` is -1 where the trace
+        lost the runtime call that launched one."""
+        found = [v for name, v in self.kernels.items() if part in name]
         if not found:
-            return np.zeros(0, np.int64)
-        starts = np.concatenate([s for s, _ in found])
-        durs = np.concatenate([d for _, d in found])
-        return durs[np.argsort(starts, kind="stable")]
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+        starts, durs, launches = (np.concatenate([v[i] for v in found])
+                                  for i in range(3))
+        order = np.argsort(starts, kind="stable")
+        return launches[order], durs[order]
 
 
 class Profiler:
@@ -66,16 +78,22 @@ class Profiler:
         events = self._prof.profiler.kineto_results.events()
         t0, t1 = self._t0, self._t1
         dev, host = [], []
+        launched = {}            # correlation id -> start of its launch
         for e in events:
             s = int(e.start_ns())
             d = int(e.duration_ns())
-            (dev if str(e.device_type()).endswith("CUDA") else host).append(
-                (e.name(), s, d))
+            if str(e.device_type()).endswith("CUDA"):
+                dev.append((e.name(), s, d, int(e.correlation_id())))
+            else:
+                host.append((e.name(), s, d))
+                if "Launch" in e.name() and e.correlation_id():
+                    launched[int(e.correlation_id())] = s
         kernels: dict[str, list] = {}
         per_name: dict[str, int] = {}
         iv = []
-        for name, s, d in dev:
-            kernels.setdefault(name, []).append((s, d))
+        for name, s, d, corr in dev:
+            kernels.setdefault(name, []).append(
+                (s, d, launched.get(corr, -1) if corr else -1))
             per_name[name] = per_name.get(name, 0) + d
             a, b = max(s, t0), min(s + d, t1)
             if b > a:
@@ -86,8 +104,8 @@ class Profiler:
         longest = sorted(gaps, key=lambda g: g[0] - g[1])[:top]
         return DeviceTrace(
             window_s=window_s, busy_s=busy / 1e9,
-            kernels={k: (np.array([s for s, _ in v], np.int64),
-                         np.array([d for _, d in v], np.int64))
+            kernels={k: tuple(np.array([x[i] for x in v], np.int64)
+                              for i in range(3))
                      for k, v in kernels.items()},
             device_ops=[[name[:120], ns / 1e9] for name, ns in ops],
             idle_gaps=[[_host_at(host, (a + b) // 2), (b - a) / 1e9]

@@ -2,15 +2,26 @@
 measured window, the check against the plain reference, the result.
 
 The program under test is ``repro_torch`` (``src/``): the harness builds
-its table through ``Database.create_table`` (and ``Database.freeze`` on
-a frozen configuration), drives it through the cell's traffic loop, and
-reads its spans, counters and kernel names.  Everything else (the bases,
-the patterns, the reference's suffix array and answers, the byte counts
-of the rooflines) is made here from ``--seed``.
+its table through ``Database.create_table`` (with the configuration's
+``table_options``, and ``Database.freeze`` on a frozen configuration),
+drives it through the cell's traffic loop, and reads its spans, counters
+and kernel names.  Everything else (the bases, the patterns, the
+reference's suffix array and answers, the byte counts of the rooflines)
+is made here from ``--seed``.
+
+A loop that writes has ``appended()``: every acknowledged appended code
+in ack order.  Its answers carry ``n_visible``, the text length each was
+answered over; the reference is built over the bases and the appends
+and answers each at its own length.  Every append from the load phase
+to the window's close is watched for an fsync of the commit log that
+held its record before its ack (``unsynced_acks``).  After the window
+the table is reopened from its root (snapshot and commit-log replay)
+and checked against every acknowledged append (``lost_appends``).
 """
 from __future__ import annotations
 
 import gc
+import glob
 import os
 import shutil
 import sys
@@ -25,7 +36,10 @@ import torch
 from suffixbench import devtrace, roofline, spec
 
 TABLE = "chr1"
-TRACE_SECONDS = 5.0          # the traced stretch at the end of the window
+TRACE_SECONDS = 5.0          # the traced stretch at the end of the window,
+                             # unless the traffic sets ``trace_seconds``
+# the keyword arguments of ``create_table`` a configuration may set
+TABLE_OPTIONS = ("memtable_limit", "max_runs", "group_commit_ms")
 SEED_BITS = 1 << 64
 
 
@@ -85,10 +99,16 @@ class LaunchRecorder:
     """While installed, records the patterns of every search the planner
     sends to the card: ``core.query.query`` (one ``bounded_search``
     launch) and ``kernels.ops.fm_search`` (one ``fm_scan`` launch),
-    host copies of (packed words, lengths) in call order."""
+    host copies of (packed words, lengths) in call order; and
+    ``kernels.ops.fused_single`` (the base and delta tiers of a table
+    that has them: one ``tier_scan`` launch beside the base's
+    ``bounded_search``), with each tier's offset, owned end and rows.
+    ``spans`` holds each call's (enter, exit) on ``time.time_ns``, the
+    profiler's clock."""
 
     def __init__(self):
-        self.calls = {"bounded_search": [], "fm_scan": []}
+        self.calls = {"bounded_search": [], "fm_scan": [], "tier_scan": []}
+        self.spans = {kernel: [] for kernel in self.calls}
         self._undo = []
 
     def install(self) -> None:
@@ -99,13 +119,29 @@ class LaunchRecorder:
             inner = getattr(mod, attr)
             setattr(mod, attr, self._wrap(inner, kernel))
             self._undo.append((mod, attr, inner))
+        inner = ops.fused_single
+        calls, spans = self.calls["tier_scan"], self.spans["tier_scan"]
+
+        def fused(store, stack, patt, plen):
+            calls.append((patt, plen, stack.offset, stack.hi, stack.n_rows))
+            t0 = time.time_ns()
+            try:
+                return inner(store, stack, patt, plen)
+            finally:
+                spans.append((t0, time.time_ns()))
+        ops.fused_single = fused
+        self._undo.append((ops, "fused_single", inner))
 
     def _wrap(self, inner, kernel: str):
-        calls = self.calls[kernel]
+        calls, spans = self.calls[kernel], self.spans[kernel]
 
         def recorded(a, patt, plen, *args, **kw):
             calls.append((patt, plen))
-            return inner(a, patt, plen, *args, **kw)
+            t0 = time.time_ns()
+            try:
+                return inner(a, patt, plen, *args, **kw)
+            finally:
+                spans.append((t0, time.time_ns()))
         return recorded
 
     def remove(self) -> None:
@@ -113,7 +149,48 @@ class LaunchRecorder:
             setattr(mod, attr, inner)
         self._undo.clear()
         for kernel, calls in self.calls.items():
-            self.calls[kernel] = [(_host(p), _host(l)) for p, l in calls]
+            self.calls[kernel] = [tuple(_host(x) for x in c) for c in calls]
+
+
+class DurableAcks:
+    """While installed, witnesses every ``Database.append`` on one
+    handle: its ack is durable when the commit-log file that held its
+    record (the table's ``wal.log`` as it was when the append was sent,
+    told apart by its inode) was fsync'd between the send and the ack.
+    Counts the acks and those that no such fsync came before."""
+
+    def __init__(self, root: str):
+        self.root = root
+        self.acks = self.unsynced = 0
+        self._synced = []          # the inode of every fsync, in order
+        self._fsync = self._db = None
+
+    def install(self, db) -> None:
+        logs = glob.glob(os.path.join(self.root, "**", "wal.log"),
+                         recursive=True)
+        log = logs[0] if len(logs) == 1 else None
+        real_fsync, real_append = os.fsync, db.append
+        synced = self._synced
+
+        def fsync(fd):
+            real_fsync(fd)
+            synced.append(os.fstat(fd).st_ino)
+
+        def append(*args, **kw):
+            ino = os.stat(log).st_ino if log and os.path.exists(log) \
+                else None
+            k = len(synced)
+            out = real_append(*args, **kw)
+            self.acks += 1
+            self.unsynced += ino is None or ino not in synced[k:]
+            return out
+        os.fsync, db.append = fsync, append
+        self._fsync, self._db = real_fsync, db
+
+    def remove(self) -> None:
+        os.fsync = self._fsync
+        del self._db.append          # the class's method again
+        self._fsync = self._db = None
 
 
 def _host(x) -> np.ndarray:
@@ -164,11 +241,12 @@ def run_window(callers, seconds: float, on_trace=None, trace_at=None):
 
 
 def judge(ref, codes, plen, count, found, first_pos,
-          unanswered: int) -> dict:
-    """Every answer against the reference's: the numbers compared, each
-    with its limit (all exact, limit 0)."""
+          unanswered: int, n_visible=None) -> dict:
+    """Every answer against the reference's (each at its ``n_visible``
+    where given): the numbers compared, each with its limit (all exact,
+    limit 0)."""
     want_count, want_first = ref.answer(torch.as_tensor(codes),
-                                        torch.as_tensor(plen))
+                                        torch.as_tensor(plen), n_visible)
     return {
         "wrong_count": {"value": int((count != want_count).sum()),
                         "limit": 0},
@@ -203,12 +281,14 @@ def _run(cell, seed, seconds, trace, device, t_process, text, root):
         # no compile lands in the ingest or the window
         from repro_torch.kernels import _build
         _build.build()
+    options = table_options(cfg)
     db = Database(root, device=device)
     os.sync()              # no earlier run's writes left to flush here
     sync(device)
     t0 = time.perf_counter()
     table = db.create_table(TABLE, text, is_dna=True,
-                            max_query_len=int(cfg["max_query_len"]))
+                            max_query_len=int(cfg["max_query_len"]),
+                            **options)
     if cfg.get("freeze_sample_rate"):
         db.freeze(TABLE, sample_rate=int(cfg["freeze_sample_rate"]))
     sync(device)
@@ -216,8 +296,13 @@ def _run(cell, seed, seconds, trace, device, t_process, text, root):
 
     ctx = types.SimpleNamespace(db=db, table=table, table_name=TABLE,
                                 seed=seed, config=cfg, traffic=traffic,
-                                device=device, n_bases=n)
+                                device=device, n_bases=n, text=text,
+                                seconds=seconds)
     load = cell.loop.Traffic(ctx)
+    writes = hasattr(load, "appended")
+    if writes:
+        acks = DurableAcks(root)
+        acks.install(db)
     load.warm_up()
     prof = None
     if trace:
@@ -235,11 +320,15 @@ def _run(cell, seed, seconds, trace, device, t_process, text, root):
     setup_s = time.perf_counter() - t_process
 
     before = table_counters(db, table)
+    runs_before = len(table.runs)
     marks = {}
     recorder = LaunchRecorder()
     on_trace = trace_at = None
     if trace:
-        trace_s = min(TRACE_SECONDS, seconds / 2)
+        # a mix whose turns are long traces longer, so that the stretch
+        # always holds whole requests
+        trace_s = min(float(traffic.get("trace_seconds", TRACE_SECONDS)),
+                      seconds / 2)
         trace_at = seconds - trace_s
 
         def start_trace():
@@ -258,29 +347,66 @@ def _run(cell, seed, seconds, trace, device, t_process, text, root):
         sync(device)
         prof.stop()
         recorder.remove()
+    if writes:
+        acks.remove()
     window_peak = (torch.cuda.max_memory_allocated(device) if on_card
                    else 0)
     answers = load.answers(requests)
     device_trace = prof.result() if trace else None
     if trace:
         for kernel, calls in recorder.calls.items():
+            launch_ns, _durs = device_trace.kernel_launches(kernel + "_kernel")
+            paired = roofline.pair_launches(recorder.spans[kernel], launch_ns)
             print(f"trace: {kernel} calls={len(calls)} launches="
-                  f"{device_trace.kernel_ns(kernel + '_kernel').size}",
+                  f"{launch_ns.size} paired={int((paired >= 0).sum())}",
                   file=sys.stderr)
+
+    n_appends = len(load.append_log) if writes else 0
+    if writes:
+        append_ms = [(a - d) * 1e3 for d, a in load.append_log]
+        print("writes: window_appends={} sealed_in_window={} runs={} "
+              "memtable_bases={} append_ms p50={:.3f} p95={:.3f} "
+              "max={:.3f}".format(
+                  n_appends, len(table.runs) - runs_before,
+                  len(table.runs), table.memtable.size,
+                  *np.percentile(append_ms, [50, 95, 100])),
+              file=sys.stderr)
+        wal = table.stats()["wal"]["log"] or {}
+        print(f"durability: acks={acks.acks} unsynced={acks.unsynced} "
+              f"log_acked={wal.get('acked')} log_fsyncs={wal.get('fsyncs')} "
+              f"log_seals={wal.get('seals')}", file=sys.stderr)
 
     # the program's state goes before the reference is built
     db.close()
-    del db, table, load, ctx
+    if writes:
+        ctx.db = ctx.table = None      # the loop stays for the reopen
+    else:
+        del load
+    del db, table, ctx
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
+    if writes:
+        t_reopen = time.perf_counter()
+        durable = reopened(root, device, options, load, n)
+        print(f"reopen: seconds={time.perf_counter() - t_reopen:.3f} "
+              f"length={durable.length} of {durable.n_final}",
+              file=sys.stderr)
+        text = np.concatenate([text, load.appended()])
+        del load
 
     reference = spec.load_module(os.path.join(spec.ROOT, cfg["reference"]),
                                  "suffixbench_reference")
     ref = reference.SuffixReference(torch.from_numpy(text).to(device),
-                                    int(cfg["max_query_len"]))
+                                    int(cfg["max_query_len"]),
+                                    n_fixed=n if writes else None)
     checks = judge(ref, answers.codes, answers.plen, answers.count,
-                   answers.found, answers.first_pos, answers.unanswered)
+                   answers.found, answers.first_pos, answers.unanswered,
+                   getattr(answers, "n_visible", None))
+    if writes:
+        checks["unsynced_acks"] = {"value": acks.unsynced, "limit": 0}
+        checks["lost_appends"] = {"value": lost_appends(ref, durable),
+                                  "limit": 0}
     correct = all(c["value"] <= c["limit"] for c in checks.values())
 
     lat_ms = np.array([(r.t_done - r.t_submit) * 1e3 for r in requests])
@@ -302,7 +428,8 @@ def _run(cell, seed, seconds, trace, device, t_process, text, root):
         lctx = types.SimpleNamespace(
             window=w, counters=delta(marks["segment"], before),
             segment_patterns=seg_patterns, trace=device_trace,
-            launches=recorder.calls, reference=ref, roofline=roofline)
+            launches=recorder.calls, launch_spans=recorder.spans,
+            reference=ref, roofline=roofline)
         metrics = _read(cell.per_layer, lctx)
     else:
         metrics = _read(cell.end_to_end, w)
@@ -313,7 +440,7 @@ def _run(cell, seed, seconds, trace, device, t_process, text, root):
         "count": 1,
         "memory_peak_bytes": int(max(setup_peak, window_peak)),
     }
-    out = {"correct": bool(correct), "attempted": len(requests),
+    out = {"correct": bool(correct), "attempted": len(requests) + n_appends,
            "failed": int(sum(1 for r in requests if not r.ok)),
            "metrics": metrics, "device": dev_info}
     if trace:
@@ -323,6 +450,51 @@ def _run(cell, seed, seconds, trace, device, t_process, text, root):
                             "idle_gaps": device_trace.idle_gaps}
     out["checks"] = checks
     return out
+
+
+def table_options(cfg: dict) -> dict:
+    """The configuration's ``table_options`` (``TABLE_OPTIONS`` only)."""
+    options = dict(cfg.get("table_options") or {})
+    unknown = set(options) - set(TABLE_OPTIONS)
+    if unknown:
+        raise ValueError(f"table_options: no such option {sorted(unknown)}")
+    return options
+
+
+def reopened(root: str, device, options: dict, load,
+             n: int) -> types.SimpleNamespace:
+    """The table reopened from ``root`` by a fresh handle (the snapshot
+    and the commit log's replay): its logical length and its answers to
+    the window's last read batch; and the length that every
+    acknowledged append makes.  The handle is closed and freed before this returns."""
+    from repro_torch.api import Database
+    db = Database(root, device=device, **options)
+    try:
+        # the text's whole length: base, sealed runs and the memtable
+        length = len(db.table(TABLE))
+        again = load.reread(db)
+    finally:
+        db.close()
+    del db
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return types.SimpleNamespace(length=length, answers=again,
+                                 n_final=n + int(load.appended().size))
+
+
+def lost_appends(ref, durable) -> int:
+    """What the reopened table lost: the bases missing from (or extra
+    in) its logical length, plus the patterns of the last read batch
+    whose reopened answer differs from the reference's at the final
+    length."""
+    a = durable.answers
+    want_count, want_first = ref.answer(
+        torch.as_tensor(a.codes), torch.as_tensor(a.plen),
+        np.full(a.plen.size, durable.n_final))
+    differ = ((a.count != want_count) | (a.found != (want_count > 0))
+              | (a.first_pos != want_first))
+    return abs(durable.length - durable.n_final) + int(differ.sum())
 
 
 def _read(metrics, ctx) -> dict:

@@ -13,6 +13,17 @@ position among the matching rows (-1 when none).  ``found`` is
 guarantee that ``first_pos`` is the smallest position, by reporting the
 position of the first matching row in suffix order instead, the step a
 scan that skips its range minimum would take.
+
+A text that grew by appends is answered at any length it had: built
+with ``n_fixed`` (the length before the first append), the reference
+keeps a second suffix array over the stretch that can still change
+(from ``max_len`` before ``n_fixed`` to the end), and
+``answer(..., n_visible)`` answers each pattern over ``text[:n_visible]``
+exactly.  The text only grows at its end, so the smallest position holds
+while its occurrence ends inside the prefix, and the count drops the
+occurrences that start past ``n_visible - len``: all of them start in
+the stretch, whose rows in the pattern's range are counted above that
+bound.
 """
 from __future__ import annotations
 
@@ -64,7 +75,8 @@ def build_suffix_array(text: torch.Tensor) -> torch.Tensor:
 class SuffixReference:
     """Exact answers over one text from its own suffix array."""
 
-    def __init__(self, text: torch.Tensor, max_len: int):
+    def __init__(self, text: torch.Tensor, max_len: int,
+                 n_fixed: int | None = None):
         self.n = int(text.numel())
         self.device = text.device
         self.max_len = int(max_len)
@@ -75,6 +87,14 @@ class SuffixReference:
             torch.full((self.max_len,), -1, dtype=torch.int8,
                        device=self.device)])
         self._rmq_levels = None
+        self.n_fixed = None if n_fixed is None else int(n_fixed)
+        self._stretch = None
+        if self.n_fixed is not None:
+            # every occurrence that a shorter prefix (>= n_fixed) loses
+            # starts at or after this, and lies inside the stretch
+            self.stretch_start = max(0, self.n_fixed - self.max_len)
+            self._stretch = SuffixReference(text[self.stretch_start:],
+                                            self.max_len)
 
     # -- binary search ------------------------------------------------------
     def compare(self, rows: torch.Tensor, patt: torch.Tensor,
@@ -196,9 +216,49 @@ class SuffixReference:
             width = max(int(plen[at].max()), 1)
             yield at, patt[at.to(patt.device)][:, :width], plen[at]
 
-    def answer(self, patt: torch.Tensor, plen: torch.Tensor):
-        """Exact (count, first_pos) int64 numpy arrays of a batch."""
-        return self._answer(patt, plen, rank_first=False)
+    def answer(self, patt: torch.Tensor, plen: torch.Tensor,
+               n_visible=None):
+        """Exact (count, first_pos) int64 numpy arrays of a batch; with
+        ``n_visible`` (one length a pattern, each from ``n_fixed`` to
+        the text's length), each answered over ``text[:n_visible]``."""
+        count, first = self._answer(patt, plen, rank_first=False)
+        if n_visible is None:
+            return count, first
+        if self._stretch is None:
+            raise ValueError("answers at a shorter length need n_fixed")
+        vis = np.asarray(n_visible, np.int64)
+        ln = np.asarray(plen, np.int64)
+        if vis.size and (vis.min() < self.n_fixed or vis.max() > self.n):
+            raise ValueError(f"n_visible outside [{self.n_fixed}, "
+                             f"{self.n}]")
+        first = np.where((first >= 0) & (first + ln <= vis), first, -1)
+        count = count - self._starts_after(patt, plen, vis - ln)
+        return count, first
+
+    def _starts_after(self, patt, plen, bound: np.ndarray) -> np.ndarray:
+        """Per pattern, its occurrences in the whole text that start
+        after ``bound`` (text position), each past ``stretch_start``:
+        the stretch's rows in the pattern's range with a larger start."""
+        s = self._stretch
+        out = np.zeros(len(bound), np.int64)
+        # a bound below the stretch would miss occurrences before it;
+        # n_visible >= n_fixed and len <= max_len keep it inside
+        if self.stretch_start and bound.size \
+                and bound.min() + 1 < self.stretch_start:
+            raise ValueError("a pattern longer than max_len")
+        local = torch.as_tensor(bound - self.stretch_start,
+                                device=s.device)
+        for at, p, ln in s._chunks(patt, plen):
+            lo, hi = s.bounds(p, ln)
+            lo_h, hi_h = lo.tolist(), hi.tolist()
+            got = torch.zeros(len(lo_h), dtype=torch.int64,
+                              device=s.device)
+            b = local[at]
+            for j, (a, e) in enumerate(zip(lo_h, hi_h)):
+                if e > a:
+                    got[j] = (s.sa[a:e] > b[j]).sum()
+            out[at.cpu().numpy()] = got.cpu().numpy()
+        return out
 
     def answer_rank_first(self, patt: torch.Tensor, plen: torch.Tensor):
         """The control: ``first_pos`` is the position of the first

@@ -16,6 +16,17 @@ once, for what these inputs need:
   distinct packed text word that the early-exit compares of those rows
   read; plus the pattern words, the lengths and the four 4-byte outputs
   a pattern.  Operations: 4 per compared word.
+* ``tier_scan`` (both bounds of each pattern in every delta tier of a
+  table, a sealed run or the memtable): per tier, what a binary search
+  of both bounds over that tier's own suffix array reads once, counted
+  as for ``bounded_search``; plus the pattern words, the lengths and
+  the four 4-byte outputs a pattern and tier.  A tier is the text from
+  its offset to its owned end, padded with base 0 to its rows, as the
+  program stores it; its suffix array is built here from the
+  reference's text.  The sweep over a tier's matching rows that the
+  kernel makes for its first position is not counted: what it needs
+  depends on how the minimum is found.  The base search of the same
+  read is the ``bounded_search`` launch beside it.
 * ``fm_scan`` (the FM backward search): per active step one rank at
   ``lo`` and, while the run is not empty, one at ``hi``; a rank at row
   ``i`` of symbol ``c`` reads the Occ entry ``(i // 64, c)`` (4 B) and
@@ -58,6 +69,17 @@ def search_traffic(ref, codes: np.ndarray, plen: np.ndarray,
                    n_words: int) -> tuple[int, int]:
     """(bytes, operations) of one ``bounded_search`` launch over the
     patterns ``codes``/``plen`` (``n_words`` words a pattern)."""
+    n_rows, n_text, n_ops = _probe_traffic(ref, codes, plen)
+    B = int(len(plen))
+    n_bytes = 4 * n_rows + 4 * n_text \
+        + 4 * B * n_words + 4 * B + 16 * B
+    return n_bytes, n_ops
+
+
+def _probe_traffic(ref, codes: np.ndarray,
+                   plen: np.ndarray) -> tuple[int, int, int]:
+    """(distinct rows, distinct text words, operations) of a binary
+    search of both bounds of each pattern over ``ref``'s suffix array."""
     trace = []
     ref.bounds(torch.as_tensor(codes), torch.as_tensor(plen), trace=trace)
     rows = torch.cat([r for r, _f, _l in trace])
@@ -77,10 +99,35 @@ def search_traffic(ref, codes: np.ndarray, plen: np.ndarray,
         for j in range(int(span.max()) if span.numel() else 0)]
         or [torch.zeros(0, dtype=torch.int64, device=rows.device)])
     n_text = int(torch.unique(text_words).numel())
-    B = int(len(plen))
-    n_bytes = 4 * int(uniq.numel()) + 4 * n_text \
-        + 4 * B * n_words + 4 * B + 16 * B
-    return n_bytes, 4 * int(words.sum())
+    return int(uniq.numel()), n_text, 4 * int(words.sum())
+
+
+def _tier_reference(ref, offset: int, end: int, rows: int):
+    """A reference over one tier's text: ``ref``'s text from ``offset``
+    to ``end``, padded with base 0 to ``rows``."""
+    text = ref.text[offset:end].to(torch.uint8)
+    pad = torch.zeros(rows - (end - offset), dtype=torch.uint8,
+                      device=text.device)
+    return type(ref)(torch.cat([text, pad]), ref.max_len)
+
+
+def tier_traffic(ref, codes: np.ndarray, plen: np.ndarray, n_words: int,
+                 offsets: np.ndarray, ends: np.ndarray,
+                 rows: np.ndarray) -> tuple[int, int]:
+    """(bytes, operations) of one ``tier_scan`` launch over the patterns
+    ``codes``/``plen`` and the tiers ``offsets``/``ends``/``rows`` (as
+    the stack holds them when the launch is made)."""
+    B, T = int(len(plen)), int(len(offsets))
+    n_bytes = 4 * B * n_words + 4 * B + 16 * B * T
+    n_ops = 0
+    for off, end, r in zip(np.asarray(offsets).tolist(),
+                           np.asarray(ends).tolist(),
+                           np.asarray(rows).tolist()):
+        n_rows, n_text, ops = _probe_traffic(
+            _tier_reference(ref, int(off), int(end), int(r)), codes, plen)
+        n_bytes += 4 * n_rows + 4 * n_text
+        n_ops += ops
+    return n_bytes, n_ops
 
 
 def fm_traffic(ref, codes: np.ndarray, plen: np.ndarray,
@@ -126,24 +173,63 @@ def fm_traffic(ref, codes: np.ndarray, plen: np.ndarray,
 SAMPLE_LAUNCHES = 256        # launches a share is read from, evenly spread
 
 
+def pair_launches(spans, launch_ns: np.ndarray) -> np.ndarray:
+    """For each traced launch (its runtime call's host time, -1 where
+    lost), the index of the recorded call whose (enter, exit) span holds
+    it, or -1: where no span or more than one holds it, or where its
+    call holds another launch as well."""
+    out = np.full(len(launch_ns), -1, np.int64)
+    if not len(spans) or not len(launch_ns):
+        return out
+    sp = np.asarray(spans, np.int64).reshape(-1, 2)
+    order = np.argsort(sp[:, 0], kind="stable")
+    enters = sp[order, 0]
+    exits = np.sort(sp[:, 1])
+    t = np.asarray(launch_ns, np.int64)
+    holding = (np.searchsorted(enters, t, "right")
+               - np.searchsorted(exits, t, "left"))
+    last = np.searchsorted(enters, t, "right") - 1
+    ok = (t >= 0) & (holding == 1)
+    # the one span that holds it is, as a rule, the latest entered
+    # before it; where calls overlap, it is looked for
+    idx = np.where(ok, order[np.maximum(last, 0)], -1)
+    for j in np.flatnonzero(ok & (t > sp[np.maximum(idx, 0), 1])):
+        idx[j] = np.flatnonzero((sp[:, 0] <= t[j]) & (t[j] <= sp[:, 1]))[0]
+    calls, n = np.unique(idx[idx >= 0], return_counts=True)
+    idx[np.isin(idx, calls[n > 1])] = -1
+    return idx
+
+
 def kernel_share(ctx, kernel: str, traffic) -> float | None:
     """Percent of its roofline that ``kernel`` reaches over the traced
     stretch: the least time of its launches over their device time, on
     at most ``SAMPLE_LAUNCHES`` of them.  Each recorded call is one
-    launch, in launch order; where the calls and the trace's launches do
-    not pair up one to one, nothing is read."""
+    launch.  Where the calls and the trace's launches pair up one to one
+    in order, every call counts; where the trace lost some launches,
+    each launch is tied to its call by the host time of the runtime call
+    that made it (``pair_launches``), and the share is read over the
+    calls so tied.  Where none is, nothing is read."""
     calls = ctx.launches.get(kernel) or []
-    durs = ctx.trace.kernel_ns(f"{kernel}_kernel")
-    if not calls or len(calls) != len(durs):
+    launch_ns, durs = ctx.trace.kernel_launches(f"{kernel}_kernel")
+    if not calls or not len(durs):
         return None
-    picks = np.unique(np.linspace(0, len(calls) - 1,
-                                  min(len(calls), SAMPLE_LAUNCHES))
+    if len(calls) == len(durs):
+        pairs = list(zip(range(len(calls)), durs))
+    else:
+        idx = pair_launches(ctx.launch_spans.get(kernel) or [], launch_ns)
+        pairs = sorted((int(i), d) for i, d in zip(idx, durs) if i >= 0)
+        if not pairs:
+            return None
+    picks = np.unique(np.linspace(0, len(pairs) - 1,
+                                  min(len(pairs), SAMPLE_LAUNCHES))
                       .round().astype(np.int64))
     least = spent = 0.0
-    for i in picks:
-        words, plen = calls[i]
+    for p in picks:
+        i, dur = pairs[p]
+        words, plen, *tiers = calls[i]
         n_bytes, n_ops = traffic(ctx.reference, unpack_words(words),
-                                 np.asarray(plen), int(words.shape[1]))
+                                 np.asarray(plen), int(words.shape[1]),
+                                 *tiers)
         least += least_seconds(n_bytes, n_ops)
-        spent += float(durs[i]) / 1e9
+        spent += float(dur) / 1e9
     return 100.0 * least / spent if spent else None

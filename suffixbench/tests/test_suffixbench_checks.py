@@ -2,8 +2,6 @@
 a sound run is ``correct``, and a run with the timed path broken
 underneath (an answer altered where it is produced: by the table's
 scan, or by its pattern cache) is not."""
-import json
-import os
 import time
 
 import numpy as np
@@ -11,10 +9,10 @@ import pytest
 import torch
 
 from suffixbench import harness, spec
-from suffixbench.tests.conftest import PROBES
+from suffixbench.tests.conftest import bench_with_probes
 
-CELLS = tuple(w["name"] for w in json.load(open(os.path.join(
-    spec.ROOT, "BENCHMARK.json")))["workloads"]) + tuple(PROBES)
+# the benchmark's cells, the probes and the cells held out of it
+CELLS = tuple(w["name"] for w in bench_with_probes()["workloads"])
 
 
 def _run(cell, seed=2**31 + 3, seconds=1.0, trace=False):
@@ -110,7 +108,8 @@ def test_the_control_is_not_correct_at_a_small_size():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,roof", [
     ("chr1-live.bulk500", "bounded_search_roofline"),
-    ("chr1-frozen.bulk100", "fm_scan_roofline")])
+    ("chr1-frozen.bulk100", "fm_scan_roofline"),
+    ("chr1-append.ycsb-d", "tier_scan_roofline")])
 def test_traced_run_on_the_card(small_cell, cuda_device, name, roof):
     """On the card a traced run reads its kernel's roofline, a share in
     (0, 100], and a busy time inside its traced stretch."""

@@ -81,8 +81,13 @@ def test_none_when_the_span_did_not_run_in_the_segment(name):
     ("chr1-frozen.bulk100", ("table.lf_walk_ms_per_query.frozen",))])
 def test_traced_run_splits_merge(small_cell, name, parts):
     """A traced run on the CPU at a small size reads the new metrics in
-    their cells; on the live cell its two parts add up to ``merge``."""
-    out = harness.run_cell(small_cell(name), 2**31 + 5, 2.0, True,
+    their cells; on the live cell its two parts add up to ``merge``.
+    Every pattern has 9 bases, past the k-mer table's 8, on a text where
+    about a fifth of them match: each batch of the untraced stretch has
+    rows left to the slice minimum (live) or the LF walk (frozen)."""
+    cell = small_cell(name, n_bases=1 << 16)
+    cell.traffic.update(min_len=9, max_len=9)
+    out = harness.run_cell(cell, 2**31 + 5, 2.0, True,
                            torch.device("cpu"), time.perf_counter())
     assert out["correct"], out["checks"]
     m = {k: v["value"] for k, v in out["metrics"].items()}
