@@ -16,15 +16,16 @@ sort.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core import query as Q
-from repro_torch.core.tablet import (TabletStore, TierStack,
-                                     build_tablet_store, stack_tier_stores,
-                                     store_from_arrays)
+from repro_torch.core.tablet import (MAX_POSITIONS, TabletStore,
+                                     TierStack, build_tablet_store,
+                                     stack_tier_stores, store_from_arrays)
 from repro_torch.device import DeviceLike
 
 
@@ -185,10 +186,6 @@ class TierSet:
     def __init__(self, stores, offsets, bounds, kinds):
         self.stack: TierStack = stack_tier_stores(
             stores, offsets=offsets, bounds=bounds)
-        R = self.stack.rows
-        self.sa_host = np.zeros((len(stores), R), np.int64)
-        for t, s in enumerate(stores):
-            self.sa_host[t, :s.n_pad] = s.sa.cpu().numpy()
         self.offsets = np.asarray(offsets, np.int64)
         self.los = np.asarray([b[0] for b in bounds], np.int64)
         self.his = np.asarray([b[1] for b in bounds], np.int64)
@@ -216,6 +213,24 @@ class TierSet:
         if not stores:
             return None
         return cls(stores, offsets, bounds, kinds)
+
+    @functools.cached_property
+    def sa_host(self) -> np.ndarray:
+        """(T, rows) int64: every tier's suffix array on the host, pad
+        rows 0; copied on the first read that enumerates delta rows."""
+        return self.stack.sa.cpu().numpy().astype(np.int64)
+
+    @staticmethod
+    def first_positions(first_g) -> list[np.ndarray]:
+        """Per query, its smallest GLOBAL position owned by any delta
+        tier (one element; empty when none), from the fused scan's
+        ``first_g`` ((T, B), ``MAX_POSITIONS`` where a tier owns none):
+        the head of :meth:`delta_positions`, with no rows copied to the
+        host, for a read that needs only the first position."""
+        first = first_g.min(dim=0).values.cpu().numpy().astype(np.int64)
+        empty = np.zeros((0,), np.int64)
+        return [first[i:i + 1] if first[i] < MAX_POSITIONS else empty
+                for i in range(first.shape[0])]
 
     def delta_positions(self, tless, tmatch, plen) -> list[np.ndarray]:
         """Per query, the ascending GLOBAL positions owned by any delta

@@ -24,8 +24,18 @@ frozen table stays frozen across it.  A persistent table (``create`` /
 ``open``) publishes an atomic snapshot (``checkpoint.manager``) at every
 seal, compaction, freeze and :meth:`flush`, and logs every append to
 its commit log (``api.wal``) before acking it; :meth:`open` replays the
-log's tail.  The on-disk format is the reference's: a table written by
-either package opens in the other.
+log's tail.  A snapshot that holds appended text is fsync'd before the
+log is sealed, since it is then the appends' only copy; a base-only one
+(``create``, a ``freeze`` before any append) is not.  The on-disk
+format is the reference's: a table written by either package opens in
+the other.
+
+The write path's spans, in the table's tracer beside the read path's:
+``append`` (:meth:`append_nowait`), ``log_wait`` (:meth:`wait_durable`),
+``seal`` (:meth:`minor_compact`), ``snapshot_sync`` (a durable
+snapshot's fsyncs, with the counter ``snapshot_sync_bytes``),
+``tier_snapshot`` (the delta-tier snapshot rebuilt after a write) and
+``delta_positions`` (the delta tiers' match positions of a read).
 
 :meth:`start_metrics` streams :meth:`stats` into the reference's
 ``metrics.jsonl`` feed (``serving.metrics``).
@@ -162,6 +172,7 @@ class SuffixTable:
         self.max_runs = max_runs
         self.fm_threshold = fm_threshold
         self.fm: Optional[FMIndex] = None
+        self._fm_synced = False      # the FM artifact fsync'd on disk
         # the base's smallest position of every 1..K-base pattern (DNA
         # only; ``api.kmers``), rebuilt by every attach of a base
         self._kmin: Optional[torch.Tensor] = None
@@ -491,7 +502,15 @@ class SuffixTable:
         """Publish the table's state as a fresh snapshot step, then seal
         the commit log.  Always a FRESH step: saving over an existing
         step deletes it before the rename, which would open a window
-        with no live snapshot; the table version rides in ``extra``."""
+        with no live snapshot; the table version rides in ``extra``.
+
+        A state that holds appended text (sealed runs, the memtable, or
+        a base that compaction grew) is published durably, and on a
+        frozen table the FM artifact it needs is fsync'd once: the seal
+        drops the log's copy of those appends, and a newer snapshot
+        lost to a power loss would leave an older one in its place, or
+        none that opens.  A base-only state (``create``, a ``freeze``
+        before any append) is not: no acknowledged append rests on it."""
         if self._manager is None:
             return
         if self.fm is not None:
@@ -520,7 +539,23 @@ class SuffixTable:
                  "build": (self._build.to_dict()
                            if self._build is not None else None)}
         step = (self._manager.latest_step() or 0) + 1
-        self._manager.save(step, state, extra=extra)
+        durable = bool(self.runs or self.memtable.size or self.version > 1)
+        fm_ms = fm_bytes = 0
+        fm_dir = table_fm_dir(self.root, self.name)
+        if (durable and self.fm is not None and not self._fm_synced
+                and os.path.isdir(fm_dir)):
+            t0 = time.perf_counter()
+            fm_bytes = CheckpointManager(fm_dir).sync_latest()
+            fm_ms = (time.perf_counter() - t0) * 1e3
+            self._fm_synced = True
+        mgr = self._manager
+        ms0, bytes0 = mgr.synced_ms, mgr.synced_bytes
+        mgr.save(step, state, extra=extra, durable=durable)
+        if durable:
+            self.tracer.record("snapshot_sync",
+                               fm_ms + mgr.synced_ms - ms0)
+            self.tracer.count("snapshot_sync_bytes",
+                              fm_bytes + mgr.synced_bytes - bytes0)
         if self._wal is not None:
             # only once the snapshot is published may the log be
             # truncated; a crash between the two is caught by the seq
@@ -570,6 +605,7 @@ class SuffixTable:
                 f"FM-index (n={fm.n}, is_dna={fm.is_dna}) does not match "
                 f"the table (n={self.n_base}, is_dna={self.is_dna})")
         self.fm = fm
+        self._fm_synced = False
         self.mesh = None
         self.store = TabletStore(
             text_packed=None, text_codes=None,
@@ -761,13 +797,16 @@ class SuffixTable:
     def _tierset(self) -> Optional[TierSet]:
         """The cached delta-tier snapshot (None: base-only fast path)."""
         if not self._tiers_valid:
-            self._tiers = TierSet.build(self.runs, self.memtable)
+            with self.tracer.span("tier_snapshot"):
+                self._tiers = TierSet.build(self.runs, self.memtable)
             self._tiers_valid = True
         return self._tiers
 
-    def _scan_tiers(self, patt, plen):
+    def _scan_tiers(self, patt, plen, *, first_only: bool = False):
         """One fused merged dispatch: (merged MatchResult, TierScanResult
-        | None, delta positions per query | None, base-only count).  The
+        | None, delta positions per query | None, base-only count); with
+        ``first_only``, each query's smallest delta position alone, the
+        fused scan's own ``first_g`` (``TierSet.first_positions``).  The
         merged ``first_pos`` is not filled on a frozen table: every
         caller derives text-order positions from the base rows itself.
         Each call counts one ``bucketed_batches`` and its queries, where
@@ -780,7 +819,10 @@ class SuffixTable:
         count = merged.count.cpu().numpy().astype(np.int64)
         if tres is None:
             return merged, None, None, count
-        delta = self._tiers.delta_positions(tres.less, tres.matches, plen)
+        with self.tracer.span("delta_positions"):
+            delta = (TierSet.first_positions(tres.first_g) if first_only
+                     else self._tiers.delta_positions(tres.less,
+                                                      tres.matches, plen))
         base_count = count - tres.count.cpu().numpy().astype(
             np.int64).sum(axis=0)
         return merged, tres, delta, base_count
@@ -901,7 +943,8 @@ class SuffixTable:
         tr = self.tracer
         t_all = time.monotonic_ns()
         with tr.span("dispatch"):
-            merged, _tres, delta, base_count = self._scan_tiers(patt, plen)
+            merged, _tres, delta, base_count = self._scan_tiers(
+                patt, plen, first_only=not top_k)
         with tr.span("merge"):
             count = merged.count.cpu().numpy().astype(np.int64)
             base_rank, kmer_pos = self._ranks_and_kmer_positions(
@@ -1055,29 +1098,34 @@ class SuffixTable:
         """The two-phase append under :meth:`append`: validate, log the
         record (buffered, not yet fsync'd), apply it to the memtable, and
         return ``(memtable_size, durability_token)``; pass the token to
-        :meth:`wait_durable` before acking."""
-        if isinstance(codes, (str, bytes, bytearray)):
-            if not self.is_dna:
-                raise TypeError("string appends are DNA-only; pass a code "
-                                "array for token tables")
-            codes = codec.encode_dna(codes)
-        # validate BEFORE logging: a bad batch must fail the caller, not
-        # poison the log with a record that re-raises on every recovery
-        codes = Memtable.validate_codes(codes, is_dna=self.is_dna)
-        if codes.size == 0:
-            return self.memtable.size, None
-        token = None
-        if self._wal is not None:
-            token = self._wal.append(codes, self._wal_seq + 1)
-        self._wal_seq += 1          # counted even unlogged: snapshots
-        self._apply_append(codes)   # persist it, keeping replay aligned
-        return self.memtable.size, token
+        :meth:`wait_durable` before acking.  An ``append`` span (with the
+        seal it may trigger)."""
+        with self.tracer.span("append"):
+            if isinstance(codes, (str, bytes, bytearray)):
+                if not self.is_dna:
+                    raise TypeError("string appends are DNA-only; pass a "
+                                    "code array for token tables")
+                codes = codec.encode_dna(codes)
+            # validate BEFORE logging: a bad batch must fail the caller,
+            # not poison the log with a record that re-raises on every
+            # recovery
+            codes = Memtable.validate_codes(codes, is_dna=self.is_dna)
+            if codes.size == 0:
+                return self.memtable.size, None
+            token = None
+            if self._wal is not None:
+                token = self._wal.append(codes, self._wal_seq + 1)
+            self._wal_seq += 1      # counted even unlogged: snapshots
+            self._apply_append(codes)   # persist it, keeping replay aligned
+            return self.memtable.size, token
 
     def wait_durable(self, token: Optional[int]) -> None:
         """Block until the append that returned ``token`` is on disk.
-        No-op for None (empty appends, tables without a log)."""
+        No-op for None (empty appends, tables without a log); else a
+        ``log_wait`` span."""
         if token is not None and self._wal is not None:
-            self._wal.wait(token)
+            with self.tracer.span("log_wait"):
+                self._wal.wait(token)
 
     def _apply_append(self, codes: np.ndarray) -> None:
         """Memtable apply and cache invalidation, shared by live appends
@@ -1092,16 +1140,19 @@ class SuffixTable:
         """Seal the memtable into an immutable :class:`Run` and start a
         fresh one; a persistent table publishes a snapshot.  No-op on an
         empty memtable.  Returns the run count; at ``max_runs`` the runs
-        are folded into the base by :meth:`compact` first."""
+        are folded into the base by :meth:`compact` first.  A ``seal``
+        span."""
         if self.memtable.size == 0:
             return len(self.runs)
-        self.runs.append(Run.from_memtable(self.memtable))
-        self._reset_memtable()
-        self._invalidate_caches()
-        if self.max_runs is not None and len(self.runs) >= self.max_runs:
-            self.compact()
-        elif self._manager is not None:
-            self._persist()
+        with self.tracer.span("seal"):
+            self.runs.append(Run.from_memtable(self.memtable))
+            self._reset_memtable()
+            self._invalidate_caches()
+            if self.max_runs is not None and \
+                    len(self.runs) >= self.max_runs:
+                self.compact()
+            elif self._manager is not None:
+                self._persist()
         return len(self.runs)
 
 

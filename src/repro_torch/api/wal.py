@@ -22,9 +22,12 @@ tail into a fresh memtable.
 * :meth:`WriteAheadLog.seal` truncates the segment **via atomic
   rename** (a fresh header-only segment is fsync'd beside the live one,
   then ``os.replace``'d over it), called only *after* a snapshot holds
-  the memtable's content.  Records carry sequence numbers so a crash
-  between persist and seal is harmless: replay skips records at or
-  below the snapshot's ``wal_seq``.
+  the memtable's content.  Records not yet fsync'd (the one whose
+  append filled the memtable) are fsync'd in the retired segment first,
+  so no waiter is released on a record that never reached the disk.
+  Records carry sequence numbers so a crash between persist and seal is
+  harmless: replay skips records at or below the snapshot's
+  ``wal_seq``.
 
 Segment layout (little-endian)::
 
@@ -46,6 +49,8 @@ import time
 import zlib
 
 import numpy as np
+
+from repro_torch.checkpoint.manager import fsync_path
 
 MAGIC = b"SAWAL\x00\x01\n"
 _HEADER = struct.Struct("<8sQI")           # magic, start_seq, header crc
@@ -166,15 +171,6 @@ def read_segment(path: str) -> tuple[int, list, RecoverySummary]:
     return int(start_seq), records, summary
 
 
-def _fsync_dir(path: str) -> None:
-    """fsync the directory so a just-created/renamed entry is durable."""
-    fd = os.open(path, os.O_RDONLY)
-    try:
-        os.fsync(fd)
-    finally:
-        os.close(fd)
-
-
 class WriteAheadLog:
     """One table's commit log: a single live segment, group-commit fsync.
 
@@ -224,7 +220,7 @@ class WriteAheadLog:
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, self.path)
-        _fsync_dir(os.path.dirname(self.path))
+        fsync_path(os.path.dirname(self.path))   # the rename is durable
         if self._file is not None:
             self._file.close()
         self._file = open(self.path, "r+b")
@@ -311,11 +307,18 @@ class WriteAheadLog:
     # -- truncation ----------------------------------------------------------
     def seal(self, start_seq: int) -> None:
         """Truncate the segment after its content has been persisted by a
-        snapshot: publish a fresh header-only segment (expecting
-        ``start_seq`` next) over the live one via atomic rename.  Every
-        outstanding record is durable by definition — the snapshot holds
-        it — so all waiters are released."""
+        snapshot: fsync the records it holds that no wave has (counted in
+        ``fsyncs``), then publish a fresh header-only segment (expecting
+        ``start_seq`` next) over the live one via atomic rename, and
+        release every waiter.  A segment with nothing unsynced is
+        retired with no fsync of its own."""
         with self._cond:
+            if (self._file is not None
+                    and self._last_written_seq > self._synced_seq):
+                self._file.flush()
+                os.fsync(self._file.fileno())
+                self.fsyncs += 1
+                self._synced_seq = self._last_written_seq
             self._publish_fresh_segment(start_seq)
             self._last_written_seq = max(self._last_written_seq,
                                          int(start_seq) - 1)

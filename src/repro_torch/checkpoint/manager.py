@@ -32,6 +32,14 @@ listed under ``"shards"`` in ``meta.json``.  The staged table build
 streams suffix-array shards this way without ever holding the whole
 array; a crash mid-stream leaves only a ``.tmp`` dir, which
 ``all_steps`` ignores and ``Catalog.reconcile`` removes.
+
+A rename alone survives a crash of the process, not a power loss: the
+step's data may still sit in the page cache.  ``save(durable=True)``
+fsyncs every file of the staged step and the step directory before the
+rename, and the checkpoint directory after it, so the published step is
+on disk when it returns; the time and bytes add to the manager's
+``synced_ms`` and ``synced_bytes``.  ``ShardedSave.commit`` publishes
+through the same rename, without the fsyncs.
 """
 from __future__ import annotations
 
@@ -39,6 +47,8 @@ import json
 import os
 import re
 import shutil
+import stat
+import time
 from typing import Optional
 
 import numpy as np
@@ -64,6 +74,27 @@ def _host(arr) -> np.ndarray:
     if hasattr(arr, "detach"):
         arr = arr.detach().cpu().numpy()
     return np.asarray(arr)
+
+
+def fsync_path(path: str) -> int:
+    """fsync a file or a directory; the file's bytes (0 for a
+    directory)."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        st = os.fstat(fd)
+    finally:
+        os.close(fd)
+    return 0 if stat.S_ISDIR(st.st_mode) else int(st.st_size)
+
+
+def fsync_step(path: str) -> int:
+    """fsync every file of the step directory ``path``, then the
+    directory itself; the files' bytes."""
+    n = sum(fsync_path(os.path.join(path, f))
+            for f in sorted(os.listdir(path)))
+    fsync_path(path)
+    return n
 
 
 def flatten(state) -> list[tuple[str, np.ndarray]]:
@@ -123,9 +154,7 @@ class ShardedSave:
         np.savez(os.path.join(self.tmp, "arrays.npz"), **arrays)
         with open(os.path.join(self.tmp, "meta.json"), "w") as f:
             json.dump(meta, f)
-        if os.path.exists(self.final):
-            shutil.rmtree(self.final)
-        os.rename(self.tmp, self.final)          # atomic publish
+        self.manager._publish(self.tmp, self.final, False)
         self._done = True
         self.manager._gc()
         return self.final
@@ -141,15 +170,18 @@ class CheckpointManager:
     def __init__(self, directory: str, keep_n: int = 3):
         self.dir = directory
         self.keep_n = keep_n
+        self.synced_ms = 0.0          # the durable publishes' fsyncs
+        self.synced_bytes = 0
         os.makedirs(directory, exist_ok=True)
 
     def stage_sharded(self, step: int) -> ShardedSave:
         """Open a shard-streaming save of ``step`` (see ShardedSave)."""
         return ShardedSave(self, step)
 
-    def save(self, step: int, state,
-             extra: Optional[dict] = None) -> str:
-        """Publish ``state`` (a tree of arrays or tensors) as ``step``."""
+    def save(self, step: int, state, extra: Optional[dict] = None, *,
+             durable: bool = False) -> str:
+        """Publish ``state`` (a tree of arrays or tensors) as ``step``
+        (``durable``: on disk when this returns)."""
         flat = flatten(state)
         arrays = {f"a{i}": x for i, (_, x) in enumerate(flat)}
         meta = {"step": int(step),
@@ -163,11 +195,36 @@ class CheckpointManager:
         np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
         with open(os.path.join(tmp, "meta.json"), "w") as f:
             json.dump(meta, f)
+        self._publish(tmp, final, durable)
+        self._gc()
+        return final
+
+    def _publish(self, tmp: str, final: str, durable: bool) -> None:
+        """Rename the staged step ``tmp`` to ``final``; ``durable``: its
+        files and itself fsync'd before the rename, the checkpoint
+        directory after it."""
+        t0 = time.perf_counter()
+        nbytes = fsync_step(tmp) if durable else 0
+        sync_s = time.perf_counter() - t0
         if os.path.exists(final):
             shutil.rmtree(final)
         os.rename(tmp, final)                    # atomic publish
-        self._gc()
-        return final
+        if durable:
+            t0 = time.perf_counter()
+            fsync_path(self.dir)
+            sync_s += time.perf_counter() - t0
+            self.synced_ms += sync_s * 1e3
+            self.synced_bytes += nbytes
+
+    def sync_latest(self) -> int:
+        """fsync the latest published step (its files and directory) and
+        the checkpoint directory; the files' bytes (0 with no step)."""
+        step = self.latest_step()
+        if step is None:
+            return 0
+        n = fsync_step(os.path.join(self.dir, f"step_{step:010d}"))
+        fsync_path(self.dir)
+        return n
 
     def _gc(self) -> None:
         steps = self.all_steps()

@@ -75,13 +75,19 @@ def shard_store(store: TabletStore, mesh) -> list:
     return views
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass
 class TierStack:
     """All delta tiers (sealed runs + memtable) stacked into one
     rectangular device view; see ``repro.core.tablet.TierStack`` for the
     straddle rule ``lo < g + plen <= hi`` and the four host-precomputed
     structures (``ov_rank``/``hi_rank``/``pad_cnt``/``rmq``) the plain
-    binary-search path uses to apply it."""
+    binary-search path uses to apply it.
+
+    ``ov_rank``, ``hi_rank`` and ``rmq`` are None until
+    :func:`fill_straddle` builds them for the plain path, the only one
+    that reads them (the ``tier_scan`` kernel reads the packed text,
+    ``sa`` and ``pad_cnt``); ``rmq`` is ``rows * log2(rows)`` int32 a
+    tier, 0.8 GB for a 2**22-base run."""
     text_packed: Optional[torch.Tensor]  # (T, W_max)  uint32 | None
     text_codes: Optional[torch.Tensor]   # (T, rows)   int32
     sa: torch.Tensor                     # (T, rows)   int32, pad rows 0
@@ -90,33 +96,59 @@ class TierStack:
     offset: torch.Tensor                 # (T,) int32  local -> global
     lo: torch.Tensor                     # (T,) int32  owned range, open
     hi: torch.Tensor                     # (T,) int32  owned range, closed
-    ov_rank: torch.Tensor                # (T, OV) int32
-    hi_rank: torch.Tensor                # (T, OV) int32
     pad_cnt: torch.Tensor                # (T, rows+1) int32
-    rmq: torch.Tensor                    # (T, K, rows) int32
     num_tiers: int
     rows: int
     is_dna: bool
     max_query_len: int
+    ov_rank: Optional[torch.Tensor] = None   # (T, OV) int32
+    hi_rank: Optional[torch.Tensor] = None   # (T, OV) int32
+    rmq: Optional[torch.Tensor] = None       # (T, K, rows) int32
 
     @property
     def device(self) -> torch.device:
         return self.sa.device
 
 
-_STACK_ARRAYS = ("text_packed", "text_codes", "sa", "n_real", "n_rows",
-                 "offset", "lo", "hi", "ov_rank", "hi_rank", "pad_cnt",
-                 "rmq")
-
-
-def _stack_from_host(arrays: dict, *, num_tiers: int, rows: int,
-                     is_dna: bool, max_query_len: int,
-                     device: torch.device) -> TierStack:
-    dev = {k: (None if arrays.get(k) is None
-               else codec.as_tensor(arrays[k], device))
-           for k in _STACK_ARRAYS}
-    return TierStack(**dev, num_tiers=int(num_tiers), rows=int(rows),
-                     is_dna=bool(is_dna), max_query_len=int(max_query_len))
+def fill_straddle(stack: TierStack) -> TierStack:
+    """``stack`` with the plain path's straddle structures, built once
+    in host numpy as the reference builds them, on the stack's device:
+    ``ov_rank``/``hi_rank`` the rows of the suffixes that start in a
+    tier's overlap window or end within ``OV`` of its owned end, ``rmq``
+    the sparse table of the smallest owned position over ``2**k`` rows."""
+    if stack.rmq is not None:
+        return stack
+    T, rows = stack.num_tiers, stack.rows
+    sa = stack.sa.cpu().numpy()
+    n_pad, offset, lo, hi = (getattr(stack, k).cpu().numpy().astype(
+        np.int64) for k in ("n_rows", "offset", "lo", "hi"))
+    overlaps = lo - offset
+    edge = max(int(overlaps.max()), stack.max_query_len - 1, 1)
+    OV = 1 << (edge - 1).bit_length()
+    K = rows.bit_length()                         # rows is a power of 2
+    BIG = np.int32(MAX_POSITIONS)
+    ov_rank = np.full((T, OV), BIG, np.int32)
+    hi_rank = np.full((T, OV), BIG, np.int32)
+    rmq = np.full((T, K, rows), BIG, np.int32)
+    for t in range(T):
+        sa_t = sa[t, :n_pad[t]]
+        ov_t = int(overlaps[t])
+        tl = int(hi[t] - offset[t])
+        in_ov = np.flatnonzero(sa_t < ov_t)
+        ov_rank[t, sa_t[in_ov]] = in_ov
+        at_end = np.flatnonzero((sa_t >= max(tl - OV, 0)) & (sa_t < tl))
+        hi_rank[t, tl - 1 - sa_t[at_end]] = at_end
+        rmq[t, 0, :n_pad[t]] = np.where(
+            (sa_t >= ov_t) & (sa_t < tl), sa_t + int(offset[t]), BIG)
+        for k in range(1, K):
+            h = 1 << (k - 1)
+            rmq[t, k, :rows - h] = np.minimum(rmq[t, k - 1, :rows - h],
+                                              rmq[t, k - 1, h:])
+            rmq[t, k, rows - h:] = rmq[t, k - 1, rows - h:]
+    stack.ov_rank = codec.as_tensor(ov_rank, stack.device)
+    stack.hi_rank = codec.as_tensor(hi_rank, stack.device)
+    stack.rmq = codec.as_tensor(rmq, stack.device)
+    return stack
 
 
 def stack_tier_stores(stores, *, offsets, bounds) -> TierStack:
@@ -124,23 +156,16 @@ def stack_tier_stores(stores, *, offsets, bounds) -> TierStack:
     stores' device.  ``offsets[t]`` is the tier's local->global shift,
     ``bounds[t] = (lo, hi)`` its owned global range.  Pad words/codes
     read as 0/-1, exactly what a tier's own arrays return past its end.
-    The precompute is host numpy, as in the reference."""
+    The rows are copied and ``pad_cnt`` counted on the stores' device
+    (no tier's arrays cross to the host: a read after every write
+    restacks them); the plain path's straddle structures wait for it
+    (:func:`fill_straddle`).  The tiers share one ``max_query_len``."""
     assert stores, "need at least one tier"
     T = len(stores)
     rows = max(s.n_pad for s in stores)
-    is_dna = stores[0].is_dna
-    assert all(s.is_dna == is_dna for s in stores)
-    sa = np.zeros((T, rows), np.int32)
-    packed = None
-    if is_dna:
-        packed = np.zeros((T, codec.packed_length(rows)), np.uint32)
-    codes = np.full((T, rows), -1, np.int32)
-    for t, s in enumerate(stores):
-        sa[t, :s.n_pad] = s.sa.cpu().numpy()
-        codes[t, :s.n_pad] = s.text_codes.cpu().numpy()
-        if is_dna:
-            pk = s.text_packed.cpu().numpy()
-            packed[t, :pk.shape[0]] = pk
+    is_dna, mq = stores[0].is_dna, stores[0].max_query_len
+    assert all(s.is_dna == is_dna and s.max_query_len == mq
+               for s in stores)
     meta = np.zeros((5, T), np.int32)
     meta[0] = [s.n_real for s in stores]
     meta[1] = [s.n_pad for s in stores]
@@ -154,51 +179,46 @@ def stack_tier_stores(stores, *, offsets, bounds) -> TierStack:
                 f"tier {t}: bounds ({int(meta[3][t])}, {int(meta[4][t])}) "
                 f"inconsistent with offset={int(meta[2][t])}, "
                 f"n_real={s.n_real}")
-    overlaps = meta[3] - meta[2]
-    mq1 = max(s.max_query_len for s in stores) - 1
-    edge = max(int(overlaps.max()), mq1, 1)
-    OV = 1 << (edge - 1).bit_length()
-    K = rows.bit_length()                         # rows is a power of 2
-    BIG = np.int32(MAX_POSITIONS)
-    ov_rank = np.full((T, OV), BIG, np.int32)
-    hi_rank = np.full((T, OV), BIG, np.int32)
-    pad_cnt = np.zeros((T, rows + 1), np.int32)
-    rmq = np.full((T, K, rows), BIG, np.int32)
+    dev = stores[0].device
+    sa = torch.zeros((T, rows), dtype=torch.int32, device=dev)
+    codes = torch.full((T, rows), -1, dtype=torch.int32, device=dev)
+    pad_cnt = torch.zeros((T, rows + 1), dtype=torch.int32, device=dev)
+    packed = None
+    if is_dna:       # uint32 words moved as their int32 bits
+        packed = torch.zeros((T, codec.packed_length(rows)),
+                             dtype=torch.int32, device=dev)
     for t, s in enumerate(stores):
-        sa_t = sa[t, :s.n_pad]
-        ov_t = int(overlaps[t])
+        n = s.n_pad
+        sa[t, :n] = s.sa
+        codes[t, :n] = s.text_codes
         tl = int(meta[4][t]) - int(meta[2][t])
-        in_ov = np.flatnonzero(sa_t < ov_t)
-        ov_rank[t, sa_t[in_ov]] = in_ov
-        at_end = np.flatnonzero((sa_t >= max(tl - OV, 0)) & (sa_t < tl))
-        hi_rank[t, tl - 1 - sa_t[at_end]] = at_end
-        pad_cnt[t, 1:s.n_pad + 1] = np.cumsum(sa_t >= tl)
-        pad_cnt[t, s.n_pad + 1:] = pad_cnt[t, s.n_pad]
-        rmq[t, 0, :s.n_pad] = np.where(
-            (sa_t >= ov_t) & (sa_t < tl), sa_t + int(meta[2][t]), BIG)
-        for k in range(1, K):
-            h = 1 << (k - 1)
-            rmq[t, k, :rows - h] = np.minimum(rmq[t, k - 1, :rows - h],
-                                              rmq[t, k - 1, h:])
-            rmq[t, k, rows - h:] = rmq[t, k - 1, rows - h:]
-    arrays = dict(text_packed=packed, text_codes=codes, sa=sa,
-                  n_real=meta[0], n_rows=meta[1], offset=meta[2],
-                  lo=meta[3], hi=meta[4], ov_rank=ov_rank, hi_rank=hi_rank,
-                  pad_cnt=pad_cnt, rmq=rmq)
-    return _stack_from_host(
-        arrays, num_tiers=T, rows=rows, is_dna=is_dna,
-        max_query_len=min(s.max_query_len for s in stores),
-        device=stores[0].device)
+        pad_cnt[t, 1:n + 1] = torch.cumsum(s.sa >= tl, 0)
+        pad_cnt[t, n + 1:] = pad_cnt[t, n]
+        if is_dna:
+            packed[t, :s.text_packed.shape[0]] = s.text_packed.view(
+                torch.int32)
+    host = {k: codec.as_tensor(meta[i], dev) for i, k in enumerate(
+        ("n_real", "n_rows", "offset", "lo", "hi"))}
+    return TierStack(
+        text_packed=None if packed is None else packed.view(torch.uint32),
+        text_codes=codes, sa=sa, pad_cnt=pad_cnt, **host, num_tiers=T,
+        rows=rows, is_dna=is_dna, max_query_len=mq)
 
 
 def tierstack_from_numpy(fields: dict, device: DeviceLike = None
                          ) -> TierStack:
     """A :class:`TierStack` from a reference ``TierStack``'s fields given
-    as numpy arrays / Python scalars (``text_packed`` may be None)."""
-    return _stack_from_host(
-        fields, num_tiers=fields["num_tiers"], rows=fields["rows"],
-        is_dna=fields["is_dna"], max_query_len=fields["max_query_len"],
-        device=resolve_device(device))
+    as numpy arrays / Python scalars (``text_packed`` may be None), its
+    straddle structures among them."""
+    dev = resolve_device(device)
+    arrays = {k: (None if fields.get(k) is None
+                  else codec.as_tensor(fields[k], dev))
+              for k in ("text_packed", "text_codes", "sa", "n_real",
+                        "n_rows", "offset", "lo", "hi", "pad_cnt",
+                        "ov_rank", "hi_rank", "rmq")}
+    return TierStack(**arrays, num_tiers=int(fields["num_tiers"]),
+                     rows=int(fields["rows"]), is_dna=bool(fields["is_dna"]),
+                     max_query_len=int(fields["max_query_len"]))
 
 
 def _finalize_store(codes, sa: torch.Tensor, n_pad: int, *, is_dna: bool,

@@ -42,6 +42,7 @@ import torch
 
 from repro_torch.core import codec
 from repro_torch.core import query as Q
+from repro_torch.core.tablet import fill_straddle
 from repro_torch.kernels import _build, kary
 
 BIG = 2**30     # "no match" sentinel for first_g
@@ -101,6 +102,7 @@ def fused_tier_scan(stack, patt, plen):
     """Scan every tier of a ``TierStack``: (count, less, matches,
     first_g), each (T, B) int32.  Both bounds of a tier ride one loop
     (the lower bound in row 0, the upper in row 1 of a (2, B) batch)."""
+    fill_straddle(stack)
     R = stack.rows
     steps = Q.search_steps(R)
     use_packed = stack.is_dna and patt.dtype == torch.uint32

@@ -460,9 +460,11 @@ def test_stats_schema_is_stable_and_documented():
     and planner counters apart from ``pad_slots``: the port pads no
     batch, so it stays 0 where the reference counts its bucket padding.
     Its latency spans may add the port's own (``dispatch_fused``, and
-    ``range_min``/``lf_walk`` inside ``merge``) and its counters of the
-    k-mer table (``kmer_patterns``, ``slice_patterns``,
-    ``slice_rows``)."""
+    ``range_min``/``lf_walk`` inside ``merge``; the write path's
+    ``append``, ``log_wait``, ``seal``, ``snapshot_sync``, and
+    ``tier_snapshot``/``delta_positions`` inside ``dispatch``) and its
+    counters (the k-mer table's ``kmer_patterns``, ``slice_patterns``,
+    ``slice_rows``; ``snapshot_sync_bytes``)."""
     stats = {}
     for pkg in PKGS:
         db, table = _db_over(pkg, RC.random_dna(800, seed=12),
@@ -483,7 +485,9 @@ def test_stats_schema_is_stable_and_documented():
     assert set(s["latency"]["total"]) == set(r["latency"]["total"])
     assert set(s["latency"]) <= set(r["latency"]) | {
         "dispatch_fused", "range_min", "lf_walk", "kmer_patterns",
-        "slice_patterns", "slice_rows"}
+        "slice_patterns", "slice_rows", "append", "log_wait", "seal",
+        "snapshot_sync", "snapshot_sync_bytes", "tier_snapshot",
+        "delta_positions"}
     for k in ("mode", "n_bases", "rounds", "n_chunks", "chunk_rows",
               "peak_device_bytes", "spill_bytes"):
         assert s["build"][k] == r["build"][k], k

@@ -22,7 +22,8 @@ from repro.core import codec as JC, query as JQ  # noqa: E402
 from repro.kernels import ops as JOPS, ref as JREF  # noqa: E402
 from repro.kernels import tier_scan as JTS  # noqa: E402
 from repro_torch.core import codec as C, query as Q  # noqa: E402
-from repro_torch.core.tablet import tierstack_from_numpy  # noqa: E402
+from repro_torch.core.tablet import (fill_straddle,  # noqa: E402
+                                     tierstack_from_numpy)
 from repro_torch.kernels import ops, ref, tier_scan as TS  # noqa: E402
 
 CPU = "cpu"
@@ -174,7 +175,8 @@ def test_fused_table_scan_and_merge_match_reference(nq, base_n, chunks):
                                                  (1400, 200, 5)])
 def test_own_tier_stack_matches_reference(base_n, limit, chunks):
     """``stack_tier_stores`` (and the whole append/seal path under it)
-    builds the same TierStack as the reference."""
+    builds the same TierStack as the reference, the plain path's
+    straddle structures (``fill_straddle``) among its fields."""
     from repro.api import SuffixTable as JTable
     from repro_torch.api import SuffixTable
     base = C.random_dna(base_n, seed=base_n)
@@ -187,6 +189,8 @@ def test_own_tier_stack_matches_reference(base_n, limit, chunks):
         pt.append(chunk)
     want = _stack_fields(jt._tierset().stack)
     stack = pt._tierset().stack
+    assert stack.rmq is None               # built for the plain path only
+    fill_straddle(stack)
     for k in STACK_FIELDS:
         np.testing.assert_array_equal(getattr(stack, k).numpy(), want[k], k)
     assert (stack.num_tiers, stack.rows, stack.max_query_len) == \

@@ -162,6 +162,38 @@ def test_per_tier_match_positions_match_reference():
         np.testing.assert_array_equal(pt.locate_range(p, limit=None), want)
 
 
+def test_first_positions_are_the_heads_of_the_delta_positions():
+    """A read that needs only ``first_pos`` takes each query's smallest
+    delta position from the fused scan's ``first_g``: the head of the
+    host enumeration (``TierSet.delta_positions``) for every query, and
+    ``scan`` over base + runs + memtable gives the brute-force first
+    position and count."""
+    base = C.random_dna(900, seed=19)
+    pt = SuffixTable.from_codes(base, device=CPU, is_dna=True,
+                                memtable_limit=200, max_query_len=16)
+    chunks = [C.random_dna(120, seed=1900 + i) for i in range(5)]
+    for chunk in chunks:
+        pt.append(chunk)
+    assert len(pt.runs) == 2 and pt.memtable.size == 120
+    pats = Q.random_patterns(40, 1, 6, seed=19) + ["A", "CG", "ACGT" * 4]
+    pp, pl = pt.planner.encode(pats)
+    tiers = pt._tierset()
+    _merged, tres = pt.planner.scan_tiers(tiers, pp, pl, first_pos=False)
+    full = tiers.delta_positions(tres.less, tres.matches, pl)
+    first = tiers.first_positions(tres.first_g)
+    assert sum(g.size > 1 for g in full) > 10
+    assert any(g.size == 0 for g in full)
+    for g, w in zip(first, full):
+        np.testing.assert_array_equal(g, w[:1])
+    text = np.concatenate([base] + chunks)
+    got = pt.scan(pats)
+    for i, p in enumerate(pats):
+        want = [j for j in range(len(text) - len(p) + 1)
+                if (text[j:j + len(p)] == C.encode_dna(p)).all()]
+        assert got.count[i] == len(want), p
+        assert got.first_pos[i] == (want[0] if want else -1), p
+
+
 def test_planner_rebind_serves_the_new_store():
     from repro_torch.core.planner import ScanPlanner
     from repro_torch.core.tablet import build_tablet_store

@@ -2,12 +2,13 @@
 ``<component>.<span>`` only while a torch profiler records, ranges from
 a serving thread nest as the spans do (``client.execute`` over the
 table's ``dispatch`` and ``merge``, ``merge`` over ``range_min`` on a
-live table and ``lf_walk`` on a frozen one), and the module still
-imports without torch."""
+live table and ``lf_walk`` on a frozen one), the write path records
+its spans, and the module still imports without torch."""
 import os
 import subprocess
 import sys
 import threading
+import types
 
 import numpy as np
 import pytest
@@ -210,6 +211,64 @@ def test_locate_range_walks_record_no_lf_walk():
         assert got.size > 0
         snap = table.tracer.snapshot()
         assert "lf_walk" not in snap and "merge" not in snap
+    finally:
+        db.close()
+
+
+WRITE_SPANS = ("append", "log_wait", "seal", "snapshot_sync",
+               "tier_snapshot", "delta_positions")
+
+
+def _held_dispatch_self():
+    """The benchmark's reader of ``dispatch`` less its ``dispatch_*``
+    children (a writing cell's), loaded from its file."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(SRC), "suffixbench",
+                        "layer_metrics",
+                        "table.dispatch_self_ms_per_query.append.py")
+    spec = importlib.util.spec_from_file_location("dispatch_self", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_a_sealing_append_and_a_read_record_the_write_path_spans(tmp_path):
+    """Four appends of 150 bases into a 600-base memtable (the fourth
+    seals it) and a read after them: each append is an ``append`` and a
+    ``log_wait``, the seal one ``seal`` holding one ``snapshot_sync``
+    and its bytes, and the read rebuilds the tier snapshot and gathers
+    the delta positions inside its ``dispatch`` but outside every
+    ``dispatch_*``, so ``dispatch`` less its ``dispatch_*`` children,
+    as the benchmark reads it, still holds them."""
+    db = Database(str(tmp_path), device="cpu")
+    table = db.create_table("dna", TEXT, is_dna=True, memtable_limit=600)
+    try:
+        for k in range(4):
+            db.append("dna", TEXT[300 * k:300 * k + 150])
+        assert len(table.runs) == 1
+        _from_worker(db, [_raw_query(PATTERNS)])
+        snap = table.tracer.snapshot()
+        assert snap["append"]["total"] == snap["log_wait"]["total"] == 4
+        assert snap["seal"]["total"] == snap["snapshot_sync"]["total"] == 1
+        assert snap["tier_snapshot"]["total"] == 1
+        assert snap["delta_positions"]["total"] == 1
+        step = os.path.join(str(tmp_path), "dna", "step_0000000002")
+        assert snap["snapshot_sync_bytes"]["sum_ms"] == sum(
+            os.path.getsize(os.path.join(step, f))
+            for f in os.listdir(step))
+        assert snap["snapshot_sync"]["sum_ms"] <= snap["seal"]["sum_ms"] \
+            <= snap["append"]["sum_ms"]
+        assert not any(n.startswith("dispatch_") for n in WRITE_SPANS)
+        inner = sum(v["sum_ms"] for k, v in snap.items()
+                    if k.startswith("dispatch_"))
+        outside = snap["dispatch"]["sum_ms"] - inner
+        assert snap["tier_snapshot"]["sum_ms"] + \
+            snap["delta_positions"]["sum_ms"] <= outside + 1e-3
+        counters = {f"table.{k}": (v["sum_ms"], v["total"])
+                    for k, v in snap.items()}
+        got = _held_dispatch_self().read(types.SimpleNamespace(
+            counters=counters, segment_patterns=len(PATTERNS)))
+        assert got == pytest.approx(outside / len(PATTERNS))
     finally:
         db.close()
 
