@@ -208,7 +208,11 @@ through the public entry points at chromosome scale:
                  The three searches (``bounded_search``, ``tablet_scan``,
                  ``tier_scan``) also print their rounds and probes
                  (``[search]``, ``[tablet]``, ``[tiers]``), ``[fm]`` the
-                 backward search's ranks and words, and ``[ptxas]``
+                 backward search's ranks and words, ``[lf_walk]`` the
+                 walk kernel's row at the frozen bulk cell's shape (an
+                 index of chr1's length, ~1,270 rows in ~6 segments:
+                 steps, bytes, a load's measured round trip and the
+                 chain's latency bound from it), and ``[ptxas]``
                  lines give every kernel's registers, shared memory and
                  spills.
 
@@ -279,6 +283,12 @@ MESH_STAGED_BUDGET = 67_108_864  # [mesh:staged]: the card's bytes, 8 tablets
 MESH_TOO_SMALL = 6_400_000  # [mesh:staged]: a budget 8 tablets cannot share
 MESH_FOOTPRINT_ROWS = (2**14, 2**16)  # [mesh-sort-footprint]: a tablet's
 PAPER_LEN = 248_956_422     # [paper]: chr1's length (GRCh38), seeded bases
+LF_WALK_LENGTHS = range(9, 17)  # lf_walk row: one pattern of each length
+                            # the k-mer table leaves a bulk100 batch
+LF_WALK_SEED = 30
+CHASE_WORDS = 2**25         # lf_walk row: int64 links (256 MiB) chased to
+                            # time a load that misses the L2
+CHASE_STEPS = (2**13, 2**15)  # lf_walk row: the two chases' dependent loads
 PAPER_QUERIES = 10_000      # [paper]: each of Tables III, IV and hedged
 PAPER_CHECK_BATCH = 512     # [paper]: patterns a plain-search call
 PAPER_BRUTE = 16            # [paper]: found and missed patterns counted
@@ -415,6 +425,158 @@ def fm_traffic(torch, FM, fa, syms):
         lo = torch.where(act, lo2, lo)
         hi = torch.where(act, hi2, hi)
     return int(ranks), int(words), lo.to(torch.int32), hi.to(torch.int32)
+
+
+CHASE_SRC = r"""
+// One thread follows a cycle of links: each load's address is the value
+// the last load returned, so the loads go one round trip at a time.
+__global__ void chase_kernel(const long long* next, long long start,
+                             long long steps, long long* out) {
+    long long i = start;
+    for (long long s = 0; s < steps; ++s) i = next[i];
+    *out = i;
+}
+
+extern "C" int chase_launch(const long long* next, long long start,
+                            long long steps, long long* out, void* stream) {
+    chase_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(next, start, steps, out);
+    return (int)cudaGetLastError();
+}
+"""
+
+
+def round_trip_us(np, torch, dev, seed: int) -> float:
+    """Measured device time of one dependent load that misses the L2, in
+    µs: one thread chases a random cycle through ``CHASE_WORDS`` int64
+    links (256 MiB, five times the 50 MB L2, about the size of a chr1
+    index), and the slope between the two chase lengths of
+    ``CHASE_STEPS``, each the least of three runs timed by CUDA events,
+    leaves the launch out.  Every run starts at a random link of its
+    own: a run that retraced another's path would find it in the L2.
+    The chase is built here from ``CHASE_SRC`` by ``nvcc``, into the
+    kernels' build directory."""
+    import ctypes
+    from repro_torch.kernels import _build
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _build.BUILD_DIR / "chase.cu"
+    lib = _build.BUILD_DIR / "chase.so"
+    src.write_text(CHASE_SRC)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).chase_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    perm = torch.randperm(CHASE_WORDS, generator=gen, device=dev)
+    links = torch.empty_like(perm)
+    links[perm] = perm.roll(-1)
+    out = torch.empty(1, dtype=torch.int64, device=dev)
+    starts = iter(np.random.default_rng(seed).integers(0, CHASE_WORDS, 8))
+
+    def chase_ms(steps: int) -> float:
+        best = math.inf
+        for _ in range(4):          # the first run loads the module
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            _build.check(fn(_build.ptr(links), int(next(starts)), steps,
+                            _build.ptr(out), _build.stream_of(links)),
+                         "chase")
+            b.record()
+            b.synchronize()
+            best = min(best, a.elapsed_time(b))
+        return best
+    lo, hi = CHASE_STEPS
+    t_lo, t_hi = chase_ms(lo), chase_ms(hi)
+    del links, perm
+    return (t_hi - t_lo) / (hi - lo) * 1e3
+
+
+def lf_walk_row(np, torch, FM, codec, Q, dev, row, check, flush) -> None:
+    """The ``lf_walk`` kernel's row at the frozen bulk cell's shape: an
+    index of chr1's length (seeded bases, every 32nd position sampled)
+    and the SA$ rows of one random pattern of each length in
+    ``LF_WALK_LENGTHS`` that matches (what the k-mer table leaves a
+    bulk100 batch: ~1,270 rows in ~6 segments).  The segment minimum
+    (the cell's mode) and the per-row walk are held against the plain
+    walk on every row.  Bytes: per step the marked word (4 B), the BWT
+    block (16 B) and the Occ row (16 B), per row the marked word of the
+    step that ends the walk (4 B) and the marked rank and the sample
+    (8 B), per segment its bounds and output (24 B); a row at text
+    position p takes p % 32 steps.  ``latency_bound_ms`` is the longest
+    chain of dependent loads times ``round_trip_us``, a load that misses
+    the L2 as :func:`round_trip_us` measures it in the same run."""
+    from repro_torch.api.fm import FMIndex, segment_bounds
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fm = FMIndex.build(codec.random_dna(PAPER_LEN, seed=LF_WALK_SEED), None,
+                       is_dna=True, sample_rate=32, device=dev)
+    fa = fm.arrays
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    pats = [Q.random_patterns(1, L, L, seed=LF_WALK_SEED + L)[0]
+            for L in LF_WALK_LENGTHS]
+    _, pp, pl = Q.encode_patterns(pats, 16, device=dev)
+    lo, hi = (x.cpu().numpy().astype(np.int64)
+              for x in FM.fm_scan_cuda(pp, pl, fa.bwt, fa.occ, fa.meta))
+    keep = hi > lo
+    starts, counts = lo[keep], (hi - lo)[keep]
+    host, total = segment_bounds(starts, counts)
+    bounds = torch.from_numpy(host).to(dev)
+    flat = torch.from_numpy(np.concatenate(
+        [np.arange(s, s + c) for s, c in zip(starts, counts)])).to(dev)
+    seg = torch.from_numpy(np.repeat(np.arange(len(starts)), counts)
+                           ).to(dev)
+
+    def plain_min():
+        """The plain walk of the same rows and its scatter-min."""
+        out = torch.full((len(starts),), np.iinfo(np.int64).max,
+                         dtype=torch.int64, device=dev)
+        return out.scatter_reduce_(0, seg, FM.lf_walk(fa, flat),
+                                   reduce="amin")
+    want_pos = FM.lf_walk(fa, flat)
+    got_pos = FM.lf_walk_cuda(fa, flat)
+    got_min, walked = FM.lf_walk_min_cuda(fa, bounds, total)
+    path_min, path_walked = fm.segment_min_positions(starts, counts)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(torch, [got_pos], [want_pos]),
+              max_abs_err(torch, [got_min], [plain_min()]),
+              max_abs_err(torch, [path_min], [got_min]))
+    check(walked == total and path_walked == total,
+          "the lf_walk launch reports every row of the batch walked")
+    steps = (want_pos.cpu().numpy() % fm.sample_rate).astype(np.int64)
+    n_bytes = 36 * int(steps.sum()) + 12 * total + 24 * len(starts)
+    n_ops = 40 * int((steps + 1).sum())
+    # the longest chain: meta and the binary search over the ends, the
+    # segment's start, the walk's steps and its final check, the marked
+    # rank, the sample
+    chain = (2 + int(np.ceil(np.log2(len(starts) + 1))) + 1
+             + int(steps.max()) + 1 + 2)
+    rt_us = round_trip_us(np, torch, dev, LF_WALK_SEED)
+    latency_ms = chain * rt_us / 1e3
+    per_row = (lambda: FM.lf_walk_cuda(fa, flat))
+    row("lf_walk", "src/repro_torch/kernels/csrc/lf_walk.cu",
+        "none: added (src/repro/kernels/fm_scan.py:195 walks with a jnp "
+        "loop)", err, lambda: FM.lf_walk_min_cuda(fa, bounds, total), 50,
+        cuda_ms(torch, plain_min, 3), n_bytes, n_ops,
+        round_trip_us=rt_us, latency_bound_ms=latency_ms,
+        chain_loads=chain, rows=total,
+        segments=len(starts), steps=int(steps.sum()),
+        path_ms=cuda_ms(torch, lambda: fm.segment_min_positions(
+            starts, counts), 20),
+        rows_mode_ms=cuda_ms(torch, per_row, 50),
+        rows_mode_device_ms=cuda_ms(torch, per_row, 50, queue_ahead=True),
+        rows_mode_cold_ms=cuda_ms(torch, per_row, 50, flush=flush),
+        rows_mode_plain_ms=cuda_ms(torch, lambda: FM.lf_walk(fa, flat), 3),
+        index_build_s=build_s)
+    print(f"[lf_walk] n={fm.n} rows={total} segments={len(starts)} "
+          f"steps={int(steps.sum())} max_steps={int(steps.max())} "
+          f"bytes={n_bytes} chain_loads={chain} round_trip_us={rt_us:.4f} "
+          f"latency_bound_ms={latency_ms:.4f} build_s={build_s:.1f}",
+          flush=True)
+    check(int(keep.sum()) >= 4 and total > 500,
+          "the lf_walk row's batch leaves the cell's ~1,270 rows to walk")
 
 
 def probed_rows(torch, trace):
@@ -3035,6 +3197,8 @@ def search_paths(np, torch, check, smi) -> tuple:
           f"ranks={ranks} words={words} found={int((hi > lo).sum())} "
           f"bwt_words={fa.bwt.shape[0]} occ_rows={fa.occ.shape[0]}",
           flush=True)
+
+    lf_walk_row(np, torch, FM, codec, Q, dev, row, check, flush)
 
     # ---------------- [long] path: patterns past 16 words ---------------
     _build.reset_launches()

@@ -74,6 +74,16 @@ def sa_is_fully_sorted(codes: np.ndarray, sa: np.ndarray) -> bool:
     return bool(np.all(ok))
 
 
+def segment_bounds(starts, counts) -> tuple[np.ndarray, int]:
+    """Host bounds of row segments ``[start, start + count)``: a (2, S)
+    int64 array of the starts over the inclusive prefix sums of the
+    counts (each segment's exclusive end in the flat order of all their
+    rows), and the total row count."""
+    starts = np.asarray(starts, np.int64).reshape(-1)
+    ends = np.cumsum(np.asarray(counts, np.int64).reshape(-1))
+    return np.stack([starts, ends]), int(ends[-1]) if ends.size else 0
+
+
 class FMIndex:
     """One table's frozen-tier index.  Host arrays are authoritative; the
     device view (:attr:`arrays`) is made on ``device`` at first use."""
@@ -220,35 +230,44 @@ class FMIndex:
         """``SA$[row]`` for a batch of rows (array-like or tensor), as an
         int64 tensor on the index's device: LF walks to the nearest
         sampled position (at most ``sample_rate`` steps each), run there
-        in chunks of at most ``LF_CHUNK`` rows."""
+        in chunks of at most ``LF_CHUNK`` rows, one ``lf_walk`` launch a
+        chunk where ``fm_scan.walks_on_kernel``."""
         r = (rows if isinstance(rows, torch.Tensor)
              else torch.as_tensor(np.asarray(rows, np.int64)))
         r = r.to(self.device, torch.int64)
         shape = r.shape
         r = r.reshape(-1)
         if r.numel() <= LF_CHUNK:
-            return fm_scan.lf_walk(self.arrays, r).reshape(shape)
-        return torch.cat([fm_scan.lf_walk(self.arrays, r[i:i + LF_CHUNK])
+            return fm_scan.walk_rows(self.arrays, r).reshape(shape)
+        return torch.cat([fm_scan.walk_rows(self.arrays, r[i:i + LF_CHUNK])
                           for i in range(0, r.numel(), LF_CHUNK)]
                          ).reshape(shape)
 
-    def segment_min_positions(self, starts, counts) -> torch.Tensor:
+    def segment_min_positions(self, starts,
+                              counts) -> tuple[torch.Tensor, int]:
         """Per segment, the smallest text position among SA$ rows
         ``[start, start + count)`` (``count >= 1``), int64 on the index's
-        device.  The rows of all segments are walked together in chunks
-        of at most ``LF_CHUNK`` and reduced into their segment with a
-        scatter-min, so a short pattern's millions of rows never leave
-        the device."""
+        device, so a short pattern's millions of rows never leave the
+        device; and the number of rows the ``lf_walk`` kernel walked, as
+        its wrapper reports the launch (0 on the plain walk).  The
+        segments' bounds (:func:`segment_bounds`) are made on the host
+        and sent in one copy.  Where ``fm_scan.walks_on_kernel``, one
+        ``lf_walk`` launch walks every row and takes each segment's
+        minimum, with no host sync before the caller reads it; elsewhere
+        the rows of all segments are walked together in chunks of at
+        most ``LF_CHUNK`` and reduced into their segment with a
+        scatter-min."""
         dev = self.device
-        starts = torch.as_tensor(np.asarray(starts, np.int64)).to(dev)
-        counts = torch.as_tensor(np.asarray(counts, np.int64)).to(dev)
+        host, total = segment_bounds(starts, counts)
+        if fm_scan.walks_on_kernel(self.arrays):
+            # from pinned memory the copy joins the stream: no host sync
+            bounds = torch.from_numpy(host).pin_memory().to(
+                dev, non_blocking=True)
+            return fm_scan.lf_walk_min_cuda(self.arrays, bounds, total)
+        starts, ends = torch.from_numpy(host).to(dev)
         out = torch.full(starts.shape, np.iinfo(np.int64).max,
                          dtype=torch.int64, device=dev)
-        if starts.numel() == 0:
-            return out
-        ends = torch.cumsum(counts, 0)
-        begins = ends - counts
-        total = int(ends[-1])
+        begins = torch.cat((ends.new_zeros(1), ends[:-1]))
         for c0 in range(0, total, LF_CHUNK):
             k = torch.arange(c0, min(total, c0 + LF_CHUNK),
                              dtype=torch.int64, device=dev)
@@ -256,7 +275,7 @@ class FMIndex:
             rows = starts[seg] + (k - begins[seg])
             out.scatter_reduce_(0, seg, fm_scan.lf_walk(self.arrays, rows),
                                 reduce="amin")
-        return out
+        return out, 0
 
     def suffix_array(self) -> torch.Tensor:
         """The full real SA (rows 1..n of SA$), int64 on the index's

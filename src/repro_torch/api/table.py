@@ -856,11 +856,13 @@ class SuffixTable:
         Counters, in a batch with a base match: ``kmer_patterns`` the
         patterns answered from the k-mer table, ``slice_patterns`` those
         left to a slice minimum and ``slice_rows`` the rows it reduces
-        or walks for them.  Spans (children of ``scan_batch``'s
-        ``merge``): ``range_min`` covers the live reductions from the
-        first launch through the host copy that waits for them,
-        ``lf_walk`` the frozen walks through theirs.  A batch with no
-        slice left records neither."""
+        or walks for them; on a frozen table, in a batch that walks,
+        ``lf_kernel_rows`` the rows the ``lf_walk`` kernel's launch
+        walked, as its wrapper reports it (0 on the plain walk).  Spans
+        (children of ``scan_batch``'s ``merge``): ``range_min`` covers
+        the live reductions from the first launch through the host copy
+        that waits for them, ``lf_walk`` the frozen walks through theirs.
+        A batch with no slice left records neither."""
         B = int(base_count.shape[0])
         out = np.full(B, -1, np.int64)
         nz = np.flatnonzero((base_count > 0) & (base_rank >= 0))
@@ -881,8 +883,10 @@ class SuffixTable:
         if self.fm is not None:
             # real-SA row r is SA$ row r + 1
             with self.tracer.span("lf_walk"):
-                out[nz] = self.fm.segment_min_positions(
-                    starts + 1, base_count[nz]).cpu().numpy()
+                pos, walked = self.fm.segment_min_positions(
+                    starts + 1, base_count[nz])
+                out[nz] = pos.cpu().numpy()
+            self.tracer.count("lf_kernel_rows", walked)
             return out
         sa = self.store.sa
         ends = starts + base_count[nz].astype(np.int64)

@@ -25,7 +25,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
-SOURCES = ("pack2bit", "pattern_scan", "tier_scan", "tablet_scan", "fm_scan")
+SOURCES = ("pack2bit", "pattern_scan", "tier_scan", "tablet_scan", "fm_scan",
+           "lf_walk")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -41,7 +42,7 @@ _lock = threading.Lock()
 # the standalone compare only.
 LAUNCHES = {"pack2bit": 0, "pattern_compare": 0, "pattern_compare_fused": 0,
             "bounded_search": 0, "tier_scan": 0, "tablet_scan": 0,
-            "fm_scan": 0}
+            "fm_scan": 0, "lf_walk": 0}
 
 
 # widest pattern batch (words of 16 bases) the four searches take: each

@@ -30,8 +30,16 @@ Two implementations of the backward search:
   packed patterns, whose plain version is :func:`backward_search`
   (``search_syms`` over ``syms_from_packed(patt, plen, 16 * W)``).
 
-:func:`lf_walk` (text positions of SA$ rows through the sampled SA) is
-plain PyTorch on the index's device.
+and two of the LF walk (text positions of SA$ rows through the sampled
+SA), chosen by :func:`walks_on_kernel`:
+
+* :func:`lf_walk` — plain PyTorch (the CPU path, token tables on every
+  device, and the kernel's twin);
+* :func:`lf_walk_cuda` and :func:`lf_walk_min_cuda` — the hand-written
+  kernel ``csrc/lf_walk.cu`` (packed DNA on a CUDA device): the walk of
+  given rows, and the minimum position of each segment of rows, in one
+  launch with no host sync.  :func:`walk_rows` takes the path for a
+  batch of rows.
 """
 from __future__ import annotations
 
@@ -252,6 +260,22 @@ def lf_walk(fa: FMArrays, rows) -> torch.Tensor:
     return pos
 
 
+def walks_on_kernel(fa: FMArrays) -> bool:
+    """True where LF walks launch the ``lf_walk`` kernel: a packed-DNA
+    index on a CUDA device.  The CPU and token indexes on every device
+    take :func:`lf_walk`."""
+    return bool(fa.is_dna and fa.device.type == "cuda")
+
+
+def walk_rows(fa: FMArrays, rows) -> torch.Tensor:
+    """:func:`lf_walk`'s result for ``rows`` (one flat int64 batch), from
+    :func:`lf_walk_cuda` where :func:`walks_on_kernel`."""
+    if walks_on_kernel(fa):
+        r = torch.as_tensor(rows, device=fa.device).to(torch.int64)
+        return lf_walk_cuda(fa, r.reshape(-1).contiguous())
+    return lf_walk(fa, rows)
+
+
 def finish_match(fa: FMArrays, lo, hi, *, walk: bool = True):
     """(lo, hi) -> (found, count, first_rank, first_pos) int32:
     ``first_rank`` is the real-SA lower-bound row ``lo - 1`` when found
@@ -264,7 +288,7 @@ def finish_match(fa: FMArrays, lo, hi, *, walk: bool = True):
     found = count > 0
     first_rank = torch.where(found, lo.to(torch.int64) - 1, -1)
     if walk:
-        pos = lf_walk(fa, lo.to(torch.int64).clamp(1, max(fa.n, 1)))
+        pos = walk_rows(fa, lo.to(torch.int64).clamp(1, max(fa.n, 1)))
         first_pos = torch.where(found, pos, -1)
     else:
         first_pos = torch.full_like(count, -1)
@@ -273,7 +297,7 @@ def finish_match(fa: FMArrays, lo, hi, *, walk: bool = True):
 
 
 def fm_meta(fa: FMArrays) -> torch.Tensor:
-    """The (8,) int32 block ``fm_scan_cuda`` reads:
+    """The (8,) int32 block ``fm_scan_cuda`` and the walks read:
     ``[C0..C3, sent_row, rows, 0, 0]`` (``pallas_meta``'s layout)."""
     meta = torch.zeros(8, dtype=torch.int32, device=fa.device)
     meta[:4] = fa.cc[:4].to(torch.int32)
@@ -338,3 +362,98 @@ def fm_scan_cuda(patterns: torch.Tensor, plen: torch.Tensor,
                     _build.stream_of(patterns)), "fm_scan")
     _build.LAUNCHES["fm_scan"] += 1
     return lo, hi
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel: LF walks, one thread per SA$ row
+# ---------------------------------------------------------------------------
+_LL = ctypes.c_longlong
+_INDEX_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I]
+
+
+def _check_dna(fa: FMArrays) -> None:
+    """Raise for a token index: the kernel reads a packed BWT."""
+    if not fa.is_dna:
+        raise ValueError("lf_walk: the kernel walks packed-DNA indexes; a "
+                         "token index takes fm_scan.lf_walk")
+
+
+def _walk_index(fa: FMArrays) -> list:
+    """The kernel's index arguments (bwt, occ, marked, marked_rank,
+    samples, meta, rows, sample_rate) after checking that ``fa``'s
+    arrays lie on a CUDA device in the layout the kernel reads."""
+    want = {"bwt": torch.uint32, "occ": torch.int32,
+            "marked": torch.uint32, "marked_rank": torch.int32,
+            "samples": torch.int32}
+    for name, dtype in want.items():
+        t = getattr(fa, name)
+        if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"lf_walk: {name} must be a contiguous {dtype} "
+                             f"CUDA tensor, got {t.dtype} on {t.device}")
+    rows = fa.n + 1
+    nblk = int(fa.occ.shape[0]) - 1
+    if fa.occ.dim() != 2 or fa.occ.shape[1] != 4 or nblk * SB < rows \
+            or int(fa.bwt.shape[0]) < nblk * WPB \
+            or 32 * int(fa.marked.shape[0]) < rows:
+        raise ValueError(f"lf_walk: the index arrays do not cover its "
+                         f"{rows} rows")
+    if fa.bwt.data_ptr() % 16 or fa.occ.data_ptr() % 16:
+        raise ValueError("lf_walk: bwt and occ must be 16-byte aligned: "
+                         "the kernel reads a block and an Occ row as one "
+                         "vector each")
+    return [_build.ptr(fa.bwt), _build.ptr(fa.occ), _build.ptr(fa.marked),
+            _build.ptr(fa.marked_rank), _build.ptr(fa.samples),
+            _build.ptr(fa.meta), rows, fa.sample_rate]
+
+
+def lf_walk_cuda(fa: FMArrays, rows: torch.Tensor) -> torch.Tensor:
+    """:func:`lf_walk` on CUDA: ``SA$`` values of ``rows``, a contiguous
+    (N,) int64 tensor on the index's device, as (N,) int64, in one
+    launch (a row outside ``[0, n]`` reports -1)."""
+    _check_dna(fa)
+    if rows.device != fa.device or rows.dtype != torch.int64 \
+            or rows.dim() != 1 or not rows.is_contiguous():
+        raise ValueError(f"lf_walk: rows must be a contiguous 1-D int64 "
+                         f"tensor on {fa.device}, got {rows.dtype} "
+                         f"{tuple(rows.shape)} on {rows.device}")
+    index = _walk_index(fa)
+    pos = torch.empty_like(rows)
+    n = int(rows.shape[0])
+    if n == 0:
+        return pos
+    fn = _build.launcher("lf_walk", "lf_walk_rows_launch",
+                         [*_INDEX_ARGS, _P, _LL, _P, _P])
+    _build.check(fn(*index, _build.ptr(rows), n, _build.ptr(pos),
+                    _build.stream_of(rows)), "lf_walk")
+    _build.LAUNCHES["lf_walk"] += 1
+    return pos
+
+
+def lf_walk_min_cuda(fa: FMArrays, bounds: torch.Tensor,
+                     total: int) -> tuple[torch.Tensor, int]:
+    """Per segment, the smallest ``SA$`` value of its rows, (S,) int64, in
+    one launch, and the rows that launch walked (``total``; 0 where there
+    was nothing to launch).  ``bounds`` is a contiguous (2, S) int64 tensor on the
+    index's device: row 0 each segment's first SA$ row, row 1 the
+    inclusive prefix sums of the segments' row counts (their exclusive
+    ends in the flat row order); ``total`` is the last of those sums,
+    known on the host.  A segment of no rows reads ``INT64_MAX``."""
+    _check_dna(fa)
+    if bounds.device != fa.device or bounds.dtype != torch.int64 \
+            or bounds.dim() != 2 or bounds.shape[0] != 2 \
+            or not bounds.is_contiguous():
+        raise ValueError(f"lf_walk: bounds must be a contiguous (2, S) "
+                         f"int64 tensor on {fa.device}, got {bounds.dtype} "
+                         f"{tuple(bounds.shape)} on {bounds.device}")
+    index = _walk_index(fa)
+    S = int(bounds.shape[1])
+    out = torch.full((S,), torch.iinfo(torch.int64).max,
+                     dtype=torch.int64, device=bounds.device)
+    if S == 0 or total <= 0:
+        return out, 0
+    fn = _build.launcher("lf_walk", "lf_walk_min_launch",
+                         [*_INDEX_ARGS, _P, _I, _LL, _P, _P])
+    _build.check(fn(*index, _build.ptr(bounds), S, int(total),
+                    _build.ptr(out), _build.stream_of(bounds)), "lf_walk")
+    _build.LAUNCHES["lf_walk"] += 1
+    return out, int(total)

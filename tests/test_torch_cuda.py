@@ -330,6 +330,71 @@ def test_fm_scan_kernel_plen_edges(cuda, n, W):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,sample_rate", [(2**16 - 1, 32),   # rows % 64 == 0
+                                           (2**16 + 37, 32),
+                                           (2**16 + 37, 8)])
+def test_lf_walk_kernel_matches_plain(cuda, n, sample_rate):
+    """The walk kernel in both modes against the plain ``lf_walk`` on the
+    card: every row of the index, then random segments (one-row ones,
+    ones at row 1 and at row n, around the sentinel row and one over
+    every row) and their minimum; one launch a call, and the index's
+    walks (``ranks_to_positions``, ``segment_min_positions``,
+    ``fm_search``'s first position) go through it."""
+    from repro_torch.api import FMIndex
+    from repro_torch.api.fm import segment_bounds
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fm_scan as FM
+    codes = C.random_dna(n, seed=n)
+    fm = FMIndex.build(codes, None, is_dna=True, sample_rate=sample_rate,
+                       device=cuda)
+    fa = fm.arrays
+    assert FM.walks_on_kernel(fa)
+    rows = torch.arange(n + 1, dtype=torch.int64, device=cuda)
+    before = _build.LAUNCHES["lf_walk"]
+    got = FM.lf_walk_cuda(fa, rows)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["lf_walk"] == before + 1
+    want = FM.lf_walk(fa, rows)
+    assert torch.equal(got, want)
+    assert sorted(got.tolist()) == list(range(n + 1))   # SA$: a permutation
+    rng = np.random.default_rng(n + sample_rate)
+    sent = fm.sent_row
+    starts = [1, n, 1, max(1, sent - 2), sent, n // 3]
+    counts = [1, 1, n, min(5, n + 1 - max(1, sent - 2)), 1, 1]
+    for _ in range(60):
+        s = int(rng.integers(1, n + 1))
+        starts.append(s)
+        counts.append(int(rng.integers(1, min(3000, n + 1 - s) + 1)))
+    host, total = segment_bounds(starts, counts)
+    before = _build.LAUNCHES["lf_walk"]
+    mins, walked = FM.lf_walk_min_cuda(fa, torch.from_numpy(host).to(cuda),
+                                       total)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["lf_walk"] == before + 1
+    assert walked == total
+    pos = want.cpu().numpy()
+    expect = [pos[s:s + c].min() for s, c in zip(starts, counts)]
+    np.testing.assert_array_equal(mins.cpu().numpy(), expect)
+    before = _build.LAUNCHES["lf_walk"]
+    mins, walked = fm.segment_min_positions(starts, counts)
+    np.testing.assert_array_equal(mins.cpu().numpy(), expect)
+    assert walked == total
+    np.testing.assert_array_equal(
+        fm.ranks_to_positions(np.array(starts)).cpu().numpy(),
+        pos[starts])
+    _, pp, pl = Q.encode_patterns(Q.random_patterns(64, 1, 12, seed=n),
+                                  16, device=cuda)
+    res = ops.fm_search(fa, pp, pl)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["lf_walk"] == before + 3
+    lo = res.first_rank.to(torch.int64) + 1
+    found = res.found.cpu().numpy()
+    np.testing.assert_array_equal(
+        res.first_pos.cpu().numpy()[found],
+        pos[lo.cpu().numpy()[found]])
+
+
+@pytest.mark.cuda
 def test_frozen_table_matches_live_on_the_card(cuda):
     from repro_torch.api import SuffixTable
     codes = C.random_dna(5000, seed=5)

@@ -20,10 +20,11 @@ from repro.api.fm import sa_is_fully_sorted as j_sorted  # noqa: E402
 from repro.core import query as JQ  # noqa: E402
 from repro.kernels import fm_scan as JFS, ops as JOPS  # noqa: E402
 from repro_torch.api import FMIndex, SuffixTable  # noqa: E402
-from repro_torch.api.fm import MAX_VOCAB, sa_is_fully_sorted  # noqa: E402
+from repro_torch.api.fm import (MAX_VOCAB, sa_is_fully_sorted,  # noqa: E402
+                                segment_bounds)
 from repro_torch.core import codec as C, query as Q  # noqa: E402
 from repro_torch.core.planner import MODE_FM, MODE_SINGLE  # noqa: E402
-from repro_torch.kernels import fm_scan as FS, ops  # noqa: E402
+from repro_torch.kernels import _build, fm_scan as FS, ops  # noqa: E402
 
 CPU = "cpu"
 DNA_N = [63, 127, 130, 2048]
@@ -213,7 +214,7 @@ def test_rank_and_lf_walk_match_reference(n):
     want = [jfm.ranks_to_positions(np.arange(s, s + k)).min()
             for s, k in zip(starts, counts)]
     np.testing.assert_array_equal(
-        fm.segment_min_positions(starts, counts).numpy(), want)
+        fm.segment_min_positions(starts, counts)[0].numpy(), want)
 
 
 @pytest.mark.parametrize("n", DNA_N)
@@ -444,13 +445,133 @@ def test_lf_walk_chunks_split_segments(monkeypatch):
     starts = np.array([1, 300, 1000, 1500], np.int64)
     counts = np.array([40, 3, 450, 549], np.int64)
     rows = np.arange(1, 2049, dtype=np.int64)
-    want_min = fm.segment_min_positions(starts, counts).numpy()
+    want_min = fm.segment_min_positions(starts, counts)[0].numpy()
     want_pos = fm.ranks_to_positions(rows).numpy()
     monkeypatch.setattr("repro_torch.api.fm.LF_CHUNK", 37)
     np.testing.assert_array_equal(
-        fm.segment_min_positions(starts, counts).numpy(), want_min)
+        fm.segment_min_positions(starts, counts)[0].numpy(), want_min)
     np.testing.assert_array_equal(fm.ranks_to_positions(rows).numpy(),
                                   want_pos)
     np.testing.assert_array_equal(
         want_min, [want_pos[s - 1:s - 1 + k].min()
                    for s, k in zip(starts, counts)])
+
+
+# ---------------------------------------------------------------------------
+# (e) the lf_walk kernel's contract, as far as the CPU reaches it
+# ---------------------------------------------------------------------------
+def _segments(n: int, sent_row: int):
+    """(starts, counts) of SA$ row segments inside [1, n]: one-row
+    segments, segments at row 1 and ending at row n, segments just
+    before, over and just after ``sent_row``, and one over every row."""
+    def cut(s, k):                    # kept inside [1, n]
+        s = min(max(1, s), n)
+        return s, min(k, n + 1 - s)
+    segs = [cut(1, 1), cut(n, 1), cut(1, 5), cut(n - 4, 5),
+            cut(sent_row - 3, 3), cut(sent_row - 1, 3), cut(sent_row, 1),
+            cut(sent_row + 1, 4), cut(n // 2, 1), cut(1, n)]
+    return (np.array([s for s, _ in segs], np.int64),
+            np.array([k for _, k in segs], np.int64))
+
+
+@pytest.mark.parametrize("n", DNA_N)
+def test_segment_bounds_give_the_reference_minimum(n):
+    """The host bounds the kernel takes (starts over the prefix sums of
+    the counts, and their total) name exactly each segment's rows, and
+    the minimum over them is the JAX index's, on indexes whose ``rows``
+    is a multiple of 64 (n = 63, 127) and not."""
+    _codes, jfm, fm = _dna_index(n)
+    starts, counts = _segments(n, fm.sent_row)
+    bounds, total = segment_bounds(starts, counts)
+    assert bounds.dtype == np.int64 and bounds.shape == (2, len(starts))
+    np.testing.assert_array_equal(bounds[0], starts)
+    np.testing.assert_array_equal(bounds[1], np.cumsum(counts))
+    assert total == int(counts.sum())
+    # each flat index k belongs to the first segment whose end is past k
+    k = np.arange(total)
+    seg = np.searchsorted(bounds[1], k, side="right")
+    begin = np.concatenate(([0], bounds[1][:-1]))
+    rows = bounds[0][seg] + (k - begin[seg])
+    np.testing.assert_array_equal(
+        rows, np.concatenate([np.arange(s, s + c)
+                              for s, c in zip(starts, counts)]))
+    want = [jfm.ranks_to_positions(np.arange(s, s + c)).min()
+            for s, c in zip(starts, counts)]
+    np.testing.assert_array_equal(
+        fm.segment_min_positions(starts, counts)[0].numpy(), want)
+    assert segment_bounds([], [])[1] == 0
+    assert fm.segment_min_positions([], [])[0].numel() == 0
+
+
+def test_lf_walk_wrappers_raise_off_the_kernel_contract(monkeypatch):
+    """The kernel's wrappers take a packed-DNA index on CUDA and int64
+    rows or (2, S) bounds on its device; everything else raises before
+    anything is built."""
+    def no_build(*a, **kw):
+        raise AssertionError("the kernel was built")
+    monkeypatch.setattr(_build, "launcher", no_build)
+    _codes, _jfm, fm = _dna_index(127)
+    fa = fm.arrays
+    rows = torch.arange(1, 9, dtype=torch.int64)
+    bounds = torch.from_numpy(segment_bounds([1, 5], [3, 2])[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        FS.lf_walk_cuda(fa, rows)
+    with pytest.raises(ValueError, match="CUDA"):
+        FS.lf_walk_min_cuda(fa, bounds, 5)
+    with pytest.raises(ValueError, match="int64"):
+        FS.lf_walk_cuda(fa, rows.to(torch.int32))
+    with pytest.raises(ValueError, match="contiguous 1-D"):
+        FS.lf_walk_cuda(fa, rows[::2])
+    with pytest.raises(ValueError, match="int64"):
+        FS.lf_walk_min_cuda(fa, bounds.to(torch.int32), 5)
+    with pytest.raises(ValueError, match=r"\(2, S\)"):
+        FS.lf_walk_min_cuda(fa, bounds.reshape(-1), 5)
+    tokens = np.random.default_rng(5).integers(0, 5, 300).astype(np.int32)
+    tfa = FMIndex.build(tokens, None, is_dna=False, device=CPU).arrays
+    with pytest.raises(ValueError, match="packed-DNA"):
+        FS.lf_walk_cuda(tfa, rows)
+    with pytest.raises(ValueError, match="packed-DNA"):
+        FS.lf_walk_min_cuda(tfa, bounds, 5)
+
+
+@pytest.mark.parametrize("is_dna", [True, False])
+def test_cpu_walks_take_the_plain_walk(monkeypatch, is_dna):
+    """On the CPU (and for a token index anywhere) every LF walk is the
+    plain ``lf_walk``: nothing is built or launched, and the answers are
+    the JAX index's."""
+    def no_build(*a, **kw):
+        raise AssertionError("the kernel was built")
+    monkeypatch.setattr(_build, "launcher", no_build)
+    monkeypatch.setattr(_build, "load", no_build)
+    before = dict(_build.LAUNCHES)
+    if is_dna:
+        codes, jfm, fm = _dna_index(130)
+    else:
+        codes = np.random.default_rng(9).integers(0, 6, 130).astype(np.int32)
+        jfm = JFM.build(codes, None, is_dna=False)
+        fm = FMIndex.from_numpy(jfm.state_dict(), jfm.extra_dict(),
+                                device=CPU)
+    assert not FS.walks_on_kernel(fm.arrays)
+    r = np.arange(131, dtype=np.int64)
+    np.testing.assert_array_equal(fm.ranks_to_positions(r).numpy(),
+                                  jfm.ranks_to_positions(r))
+    np.testing.assert_array_equal(FS.walk_rows(fm.arrays, r).numpy(),
+                                  jfm.ranks_to_positions(r))
+    np.testing.assert_array_equal(fm.suffix_array().numpy(),
+                                  jfm.suffix_array())
+    starts, counts = _segments(130, fm.sent_row)
+    mins, walked = fm.segment_min_positions(starts, counts)
+    np.testing.assert_array_equal(
+        mins.numpy(),
+        [jfm.ranks_to_positions(np.arange(s, s + c)).min()
+         for s, c in zip(starts, counts)])
+    assert walked == 0
+    assert _build.LAUNCHES == before
+
+
+def test_build_names_the_lf_walk_kernel():
+    """The walk kernel is one of the built sources, counted per launch,
+    and its source is where the build looks for it."""
+    assert "lf_walk" in _build.SOURCES and "lf_walk" in _build.LAUNCHES
+    assert (_build.CSRC / "lf_walk.cu").is_file()
+    assert _build.library_path("lf_walk").name.startswith("lf_walk-")

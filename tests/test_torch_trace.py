@@ -187,6 +187,71 @@ def test_child_span_counts_the_batches_with_a_base_match(frozen, child):
         db.close()
 
 
+@pytest.mark.parametrize("frozen", [True, False])
+def test_frozen_walks_count_the_kernel_rows(frozen):
+    """A frozen table counts ``lf_kernel_rows`` beside ``slice_rows`` in
+    each batch that walks: 0 on the CPU, whose walks are the plain ones.
+    A live table walks nothing and records no such counter."""
+    db, table = _db(frozen)
+    try:
+        _from_worker(db, [_raw_query(PATTERNS), _raw_query(SHORT),
+                          _raw_query(NO_MATCH), _raw_query(PATTERNS[1:])])
+        snap = table.tracer.snapshot()
+        assert snap["slice_rows"]["sum_ms"] > 0
+        if not frozen:
+            assert "lf_kernel_rows" not in snap
+            return
+        assert snap["lf_kernel_rows"]["total"] == 2
+        assert snap["lf_walk"]["total"] == 2
+        assert snap["lf_kernel_rows"]["sum_ms"] == 0
+        counters = {f"table.{k}": (v["sum_ms"], v["total"])
+                    for k, v in snap.items()}
+        share = _layer_reader("table.lf_kernel_row_share.frozen")
+        assert share.read(types.SimpleNamespace(counters=counters)) == 0.0
+    finally:
+        db.close()
+
+
+def test_kernel_rows_are_what_the_walk_reports(monkeypatch):
+    """``lf_kernel_rows`` adds up the rows each walk reports its launch
+    walked, not rows the table works out for itself: a walk that
+    reports 7 rows a batch gives 14 over the two batches that walk."""
+    from repro_torch.api.fm import FMIndex
+    plain = FMIndex.segment_min_positions
+
+    def reporting(self, starts, counts):
+        return plain(self, starts, counts)[0], 7
+    monkeypatch.setattr(FMIndex, "segment_min_positions", reporting)
+    db, table = _db(True)
+    try:
+        _from_worker(db, [_raw_query(PATTERNS), _raw_query(SHORT),
+                          _raw_query(NO_MATCH), _raw_query(PATTERNS[1:])])
+        snap = table.tracer.snapshot()
+        assert snap["lf_kernel_rows"]["total"] == 2
+        assert snap["lf_kernel_rows"]["sum_ms"] == 14
+    finally:
+        db.close()
+
+
+def test_the_kernel_row_share_reads_the_counters():
+    """The benchmark's reader of the walked rows' share: None without the
+    counter (a program that lacks it) or without a walked row, else 100
+    x ``lf_kernel_rows`` / ``slice_rows``."""
+    share = _layer_reader("table.lf_kernel_row_share.frozen")
+
+    def read(**counters):
+        flat = {f"table.{k}": v for k, v in counters.items()}
+        return share.read(types.SimpleNamespace(counters=flat))
+    assert read() is None
+    assert read(slice_rows=(1270.0, 30)) is None
+    assert read(slice_rows=(0.0, 30), lf_kernel_rows=(0.0, 0)) is None
+    assert read(slice_rows=(1270.0, 30), lf_kernel_rows=(1270.0, 30)) \
+        == 100.0
+    assert read(slice_rows=(1270.0, 30), lf_kernel_rows=(0.0, 30)) == 0.0
+    assert read(slice_rows=(1000.0, 30), lf_kernel_rows=(250.0, 30)) \
+        == 25.0
+
+
 def test_frozen_top_k_walks_are_lf_walk_spans():
     """On a frozen table the ``top_k`` path's walks (one a matching row)
     are ``lf_walk`` spans too, besides the batch's minimum walk."""
@@ -219,17 +284,22 @@ WRITE_SPANS = ("append", "log_wait", "seal", "snapshot_sync",
                "tier_snapshot", "delta_positions")
 
 
-def _held_dispatch_self():
-    """The benchmark's reader of ``dispatch`` less its ``dispatch_*``
-    children (a writing cell's), loaded from its file."""
+def _layer_reader(name: str):
+    """The benchmark's reader of the per-layer metric ``name``, loaded
+    from its file."""
     import importlib.util
     path = os.path.join(os.path.dirname(SRC), "suffixbench",
-                        "layer_metrics",
-                        "table.dispatch_self_ms_per_query.append.py")
-    spec = importlib.util.spec_from_file_location("dispatch_self", path)
+                        "layer_metrics", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _held_dispatch_self():
+    """The benchmark's reader of ``dispatch`` less its ``dispatch_*``
+    children (a writing cell's)."""
+    return _layer_reader("table.dispatch_self_ms_per_query.append")
 
 
 def test_a_sealing_append_and_a_read_record_the_write_path_spans(tmp_path):
