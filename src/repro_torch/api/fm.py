@@ -226,22 +226,24 @@ class FMIndex:
         return self._arrays
 
     # -------------------------------------------------------- LF walks
+    @staticmethod
+    def _lf_chunks(total: int):
+        """The LF walks' one chunk rule: ``(c0, c1)`` bounds that cover the
+        flat rows ``[0, total)`` in chunks of at most ``LF_CHUNK`` (read at
+        each call)."""
+        return ((c0, min(total, c0 + LF_CHUNK))
+                for c0 in range(0, total, LF_CHUNK))
+
     def ranks_to_positions(self, rows) -> torch.Tensor:
-        """``SA$[row]`` for a batch of rows (array-like or tensor), as an
-        int64 tensor on the index's device: LF walks to the nearest
+        """``SA$[row]`` for a flat batch of rows (array-like or tensor), as
+        an int64 tensor on the index's device: LF walks to the nearest
         sampled position (at most ``sample_rate`` steps each), run there
-        in chunks of at most ``LF_CHUNK`` rows, one ``lf_walk`` launch a
-        chunk where ``fm_scan.walks_on_kernel``."""
-        r = (rows if isinstance(rows, torch.Tensor)
-             else torch.as_tensor(np.asarray(rows, np.int64)))
-        r = r.to(self.device, torch.int64)
-        shape = r.shape
-        r = r.reshape(-1)
-        if r.numel() <= LF_CHUNK:
-            return fm_scan.walk_rows(self.arrays, r).reshape(shape)
-        return torch.cat([fm_scan.walk_rows(self.arrays, r[i:i + LF_CHUNK])
-                          for i in range(0, r.numel(), LF_CHUNK)]
-                         ).reshape(shape)
+        in :meth:`_lf_chunks`, one ``lf_walk`` launch a chunk where
+        ``fm_scan.walks_on_kernel``."""
+        r = torch.as_tensor(rows).to(self.device, torch.int64).reshape(-1)
+        parts = [fm_scan.walk_rows(self.arrays, r[c0:c1])
+                 for c0, c1 in self._lf_chunks(r.numel())]
+        return torch.cat(parts) if parts else r
 
     def segment_min_positions(self, starts,
                               counts) -> tuple[torch.Tensor, int]:
@@ -254,8 +256,8 @@ class FMIndex:
         and sent in one copy.  Where ``fm_scan.walks_on_kernel``, one
         ``lf_walk`` launch walks every row and takes each segment's
         minimum, with no host sync before the caller reads it; elsewhere
-        the rows of all segments are walked together in chunks of at
-        most ``LF_CHUNK`` and reduced into their segment with a
+        the rows of all segments are walked together in
+        :meth:`_lf_chunks` and reduced into their segment with a
         scatter-min."""
         dev = self.device
         host, total = segment_bounds(starts, counts)
@@ -268,9 +270,8 @@ class FMIndex:
         out = torch.full(starts.shape, np.iinfo(np.int64).max,
                          dtype=torch.int64, device=dev)
         begins = torch.cat((ends.new_zeros(1), ends[:-1]))
-        for c0 in range(0, total, LF_CHUNK):
-            k = torch.arange(c0, min(total, c0 + LF_CHUNK),
-                             dtype=torch.int64, device=dev)
+        for c0, c1 in self._lf_chunks(total):
+            k = torch.arange(c0, c1, dtype=torch.int64, device=dev)
             seg = torch.searchsorted(ends, k, right=True)
             rows = starts[seg] + (k - begins[seg])
             out.scatter_reduce_(0, seg, fm_scan.lf_walk(self.arrays, rows),

@@ -221,16 +221,14 @@ class TierSet:
         return self.stack.sa.cpu().numpy().astype(np.int64)
 
     @staticmethod
-    def first_positions(first_g) -> list[np.ndarray]:
+    def first_positions(first_g) -> np.ndarray:
         """Per query, its smallest GLOBAL position owned by any delta
-        tier (one element; empty when none), from the fused scan's
+        tier, (B,) int64 with -1 where none, from the fused scan's
         ``first_g`` ((T, B), ``MAX_POSITIONS`` where a tier owns none):
         the head of :meth:`delta_positions`, with no rows copied to the
         host, for a read that needs only the first position."""
         first = first_g.min(dim=0).values.cpu().numpy().astype(np.int64)
-        empty = np.zeros((0,), np.int64)
-        return [first[i:i + 1] if first[i] < MAX_POSITIONS else empty
-                for i in range(first.shape[0])]
+        return np.where(first < MAX_POSITIONS, first, -1)
 
     def delta_positions(self, tless, tmatch, plen) -> list[np.ndarray]:
         """Per query, the ascending GLOBAL positions owned by any delta

@@ -61,7 +61,7 @@ from __future__ import annotations
 import os
 import shutil
 import time
-from typing import Optional, Union
+from typing import Optional
 
 import numpy as np
 import torch
@@ -517,7 +517,7 @@ class SuffixTable:
             # frozen: the FM artifact under fm/ is the base index on disk
             sa_real = np.zeros((0,), np.int32)
         else:
-            sa_real = self.store.sa[self.store.pad_count:].cpu().numpy()
+            sa_real = self.planner.base_rows.suffix_array().cpu().numpy()
         state = {"codes": self._codes, "sa_real": sa_real,
                  "mem_codes": self.memtable.appended}
         runs_meta = []
@@ -574,7 +574,7 @@ class SuffixTable:
         publishes a snapshot.  Idempotent."""
         if self.fm is not None:
             return self
-        sa_real = self.store.sa[self.store.pad_count:].cpu().numpy()
+        sa_real = self.planner.base_rows.suffix_array().cpu().numpy()
         fm = FMIndex.build(self._codes, sa_real, is_dna=self.is_dna,
                            sample_rate=sample_rate, device=self.device)
         self._attach_frozen(fm)
@@ -652,8 +652,7 @@ class SuffixTable:
         if self.mesh is not None and self._distributed_build:
             sa_real, _stats = _build_sa(combined, self.device)
         else:
-            base_sa = (self.fm.suffix_array() if was_frozen
-                       else self.store.sa[self.store.pad_count:])
+            base_sa = self.planner.base_rows.suffix_array()
             sa_real = merge_delta_sa(combined, self.n_base, base_sa,
                                      is_dna=self.is_dna,
                                      max_query_len=self.max_query_len,
@@ -746,13 +745,10 @@ class SuffixTable:
 
     def _resident_bytes(self) -> dict:
         """Per-tier index bytes (the reference's schema): ``base_sa`` the
-        device SA plus the planner's host copy, ``text_device`` the
-        packed and padded device text (both 0 once frozen, where ``fm``
-        holds the index), ``text_host`` the raw codes every table
-        keeps."""
+        device SA, ``text_device`` the packed and padded device text
+        (both 0 once frozen, where ``fm`` holds the index), ``text_host``
+        the raw codes every table keeps."""
         base_sa = int(self.store.sa.numel()) * 4
-        if self.planner._sa_host is not None:
-            base_sa += int(self.planner._sa_host.nbytes)
         text_dev = sum(int(t.numel()) * 4 for t in (self.store.text_packed,
                                                     self.store.text_codes)
                        if t is not None)
@@ -803,11 +799,11 @@ class SuffixTable:
         return self._tiers
 
     def _scan_tiers(self, patt, plen, *, first_only: bool = False):
-        """One fused merged dispatch: (merged MatchResult, TierScanResult
-        | None, delta positions per query | None, base-only count); with
-        ``first_only``, each query's smallest delta position alone, the
-        fused scan's own ``first_g`` (``TierSet.first_positions``).  The
-        merged ``first_pos`` is not filled on a frozen table: every
+        """One fused merged dispatch: (merged MatchResult, its host count,
+        the base tier's share of it, the delta tiers' positions per query
+        | None); with ``first_only``, each query's smallest delta position
+        alone, -1 where none (``TierSet.first_positions``).  The merged
+        ``first_pos`` is not filled on a frozen table: every
         caller derives text-order positions from the base rows itself.
         Each call counts one ``bucketed_batches`` and its queries, where
         the reference counts its bucket-padded dispatches (the port pads
@@ -818,14 +814,14 @@ class SuffixTable:
         self.planner.stats.bucketed_queries += int(plen.shape[0])
         count = merged.count.cpu().numpy().astype(np.int64)
         if tres is None:
-            return merged, None, None, count
+            return merged, count, count, None
         with self.tracer.span("delta_positions"):
             delta = (TierSet.first_positions(tres.first_g) if first_only
                      else self._tiers.delta_positions(tres.less,
                                                       tres.matches, plen))
         base_count = count - tres.count.cpu().numpy().astype(
             np.int64).sum(axis=0)
-        return merged, tres, delta, base_count
+        return merged, count, base_count, delta
 
     def _ranks_and_kmer_positions(self, merged: MatchResult, patt, plen):
         """Host copies of the batch's base ranks and, on a DNA table, of
@@ -844,14 +840,9 @@ class SuffixTable:
                             kmer_pos: Optional[np.ndarray]) -> np.ndarray:
         """Per query, the smallest BASE text position among its base-tier
         matches (-1 when none).  A pattern with an entry in ``kmer_pos``
-        (the k-mer table's answers) takes it; the rest take the min of
-        their SA slice ``[lb, lb + count)``, reduced in place on the
-        store's device, one reduction per matching query and one host
-        copy for the batch.  (The reference gathers every slice into one
-        flat array first; at chromosome scale a short pattern's slice
-        holds millions of rows, and that gather dominated a batch.)  A
-        frozen table has no SA: its rows are LF-walked and min-reduced on
-        the index's device.
+        (the k-mer table's answers) takes it; the rest take their
+        segment minimum from the planner's ``base_rows``: reduced on the
+        store's device, or LF-walked and reduced on the index's.
 
         Counters, in a batch with a base match: ``kmer_patterns`` the
         patterns answered from the k-mer table, ``slice_patterns`` those
@@ -879,21 +870,11 @@ class SuffixTable:
         self.tracer.count("slice_rows", int(base_count[nz].sum()))
         if nz.size == 0:
             return out
-        starts = self.store.pad_count + base_rank[nz].astype(np.int64)
-        if self.fm is not None:
-            # real-SA row r is SA$ row r + 1
-            with self.tracer.span("lf_walk"):
-                pos, walked = self.fm.segment_min_positions(
-                    starts + 1, base_count[nz])
-                out[nz] = pos.cpu().numpy()
+        base = self.planner.base_rows
+        with self.tracer.span(base.span):
+            out[nz], walked = base.segment_min(base_rank[nz], base_count[nz])
+        if walked is not None:
             self.tracer.count("lf_kernel_rows", walked)
-            return out
-        sa = self.store.sa
-        ends = starts + base_count[nz].astype(np.int64)
-        with self.tracer.span("range_min"):
-            mins = torch.stack([sa[s:e].min() for s, e in
-                                zip(starts.tolist(), ends.tolist())])
-            out[nz] = mins.cpu().numpy()
         return out
 
     def scan_encoded(self, patt, plen, *, mode: Optional[str] = None
@@ -906,25 +887,6 @@ class SuffixTable:
         merged, _tres = self.planner.scan_tiers(self._tierset(), patt,
                                                 plen, mode=mode)
         return merged
-
-    def _base_slice(self, base_count, base_rank, i, *,
-                    span: bool = False) -> np.ndarray:
-        """Base-tier SA slice of row ``i``'s matches (suffix-rank order).
-        On a frozen table the rows are LF-walked; ``span`` times that walk
-        as an ``lf_walk`` span (``scan_batch`` asks for it inside its
-        ``merge``; ``locate_range`` runs outside any ``merge`` and does
-        not)."""
-        cb = int(base_count[i])
-        if cb <= 0 or base_rank[i] < 0:
-            return np.zeros((0,), np.int64)
-        lb = self.store.pad_count + int(base_rank[i])
-        if self.fm is not None:
-            rows = torch.arange(lb + 1, lb + 1 + cb, dtype=torch.int64)
-            if not span:
-                return self.fm.ranks_to_positions(rows).cpu().numpy()
-            with self.tracer.span("lf_walk"):
-                return self.fm.ranks_to_positions(rows).cpu().numpy()
-        return self.store.sa[lb:lb + cb].cpu().numpy().astype(np.int64)
 
     def scan_batch(self, patt, plen, top_k: int = 0) -> ScanOutcome:
         """Merged scan of an encoded batch (numpy or torch; moved to the
@@ -947,29 +909,36 @@ class SuffixTable:
         tr = self.tracer
         t_all = time.monotonic_ns()
         with tr.span("dispatch"):
-            merged, _tres, delta, base_count = self._scan_tiers(
+            merged, count, base_count, delta = self._scan_tiers(
                 patt, plen, first_only=not top_k)
         with tr.span("merge"):
-            count = merged.count.cpu().numpy().astype(np.int64)
             base_rank, kmer_pos = self._ranks_and_kmer_positions(
                 merged, patt, plen)
             first_pos = self._base_min_positions(base_count, base_rank,
                                                  kmer_pos)
-            positions = (np.full((B, top_k), -1, np.int64)
-                         if top_k else None)
-            for i in range(B):
-                g = (delta[i] if delta is not None
-                     else np.zeros((0,), np.int64))
-                if g.size and (first_pos[i] < 0 or g[0] < first_pos[i]):
-                    first_pos[i] = int(g[0])
-                if top_k:
-                    run = self._base_slice(base_count, base_rank, i,
-                                           span=True)
+            positions, heads = None, delta   # heads: (B,), -1 where none
+            if top_k:
+                positions = np.full((B, top_k), -1, np.int64)
+                base = self.planner.base_rows
+                empty = np.zeros((0,), np.int64)
+                for i in range(B):
+                    run = empty
+                    if base_count[i] > 0 and base_rank[i] >= 0:
+                        with tr.span(base.span):
+                            run = base.positions(base_rank[i], base_count[i])
+                    g = delta[i] if delta is not None else empty
                     cand = np.concatenate([run, g])
                     if cand.size > top_k:
                         cand = np.partition(cand, top_k - 1)[:top_k]
                     cand.sort()
                     positions[i, :cand.size] = cand
+                if delta is not None:
+                    heads = np.array([g[0] if g.size else -1 for g in delta],
+                                     np.int64)
+            if heads is not None:
+                first_pos = np.where(
+                    (heads >= 0) & ((first_pos < 0) | (heads < first_pos)),
+                    heads, first_pos)
         tr.record("total", (time.monotonic_ns() - t_all) / 1e6)
         return ScanOutcome(found=count > 0, count=count,
                            first_pos=first_pos, positions=positions)
@@ -1013,11 +982,12 @@ class SuffixTable:
         if limit is not None and limit <= 0:
             raise ValueError(f"limit must be positive, got {limit}")
         patt, plen = self.planner.encode([pattern])
-        merged, _tres, delta, base_count = self._scan_tiers(patt, plen)
-        run = self._base_slice(base_count,
-                               merged.first_rank.cpu().numpy(), 0)
-        g = delta[0] if delta is not None else np.zeros((0,), np.int64)
-        cand = np.concatenate([run, g]) if g.size else run
+        merged, _count, base_count, delta = self._scan_tiers(patt, plen)
+        rank = int(merged.first_rank[0])
+        cand = self.planner.base_rows.positions(
+            rank, base_count[0] if rank >= 0 else 0)
+        if delta is not None:
+            cand = np.concatenate([cand, delta[0]])
         cand = cand[cand > after]
         if limit is not None and cand.size > limit:
             cand = np.partition(cand, limit - 1)[:limit]
@@ -1165,5 +1135,3 @@ def open_table(name: str, *, root: Optional[str] = None,
     """``SuffixTable.open`` under its older spelling, one call deep."""
     return SuffixTable.open(name, root=root, **kw)
 
-
-TableLike = Union[SuffixTable, TabletStore]

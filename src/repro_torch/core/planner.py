@@ -21,9 +21,9 @@ bucket because it compiles per shape; the port runs eagerly and pads
 nothing (the answers and the ``retried_*`` counts are the same).
 
 On top of the exact scan the planner adds match enumeration
-(:meth:`ScanPlanner.locate`, positions in suffix-rank order from the SA
-slice ``[lb, ub)``, or LF walks on a frozen table) and an LRU result
-cache for the string-level API.
+(:meth:`ScanPlanner.locate`, positions in suffix-rank order from
+:attr:`ScanPlanner.base_rows`: the SA, or LF walks on a frozen table)
+and an LRU result cache for the string-level API.
 """
 from __future__ import annotations
 
@@ -104,6 +104,65 @@ class TierScanResult:
     less: torch.Tensor
     matches: torch.Tensor
     first_g: torch.Tensor
+
+
+class LiveBaseRows:
+    """The base tier's answers in real-SA rank numbering on a live table:
+    the padded suffix array on the store's device, whose real rank ``r``
+    is row ``pad_count + r``.  Its work is timed as ``span``."""
+    span = "range_min"
+
+    def __init__(self, store: TabletStore):
+        self.store = store
+
+    def segment_min(self, ranks, counts) -> tuple[np.ndarray, None]:
+        """Per segment ``[rank, rank + count)`` (``count >= 1``), its
+        smallest text position, and None: no kernel walks rows.  One
+        reduction a slice in place and one host copy: at chromosome scale
+        a short pattern's slice holds millions of rows, and gathering the
+        slices into one flat array first (as the reference does)
+        dominated a batch."""
+        sa = self.store.sa
+        starts = self.store.pad_count + np.asarray(ranks, np.int64)
+        ends = starts + np.asarray(counts, np.int64)
+        mins = torch.stack([sa[s:e].min() for s, e in
+                            zip(starts.tolist(), ends.tolist())])
+        return mins.cpu().numpy(), None
+
+    def positions(self, rank: int, count: int) -> np.ndarray:
+        """Host int64 text positions of real-SA ranks ``[rank, rank +
+        count)``, in suffix-rank order: one slice and one copy."""
+        lb = self.store.pad_count + int(rank)
+        return self.store.sa[lb:lb + int(count)].cpu().numpy().astype(
+            np.int64)
+
+    def suffix_array(self) -> torch.Tensor:
+        """The whole real SA on the store's device."""
+        return self.store.sa[self.store.pad_count:]
+
+
+class FrozenBaseRows:
+    """:class:`LiveBaseRows`'s answers on a frozen table, from the
+    ``api.fm.FMIndex`` ``fm``: real-SA rank ``r`` is SA$ row ``r + 1``,
+    LF-walked on the index's device; ``segment_min`` also returns the
+    rows the ``lf_walk`` kernel walked."""
+    span = "lf_walk"
+
+    def __init__(self, fm):
+        self.fm = fm
+
+    def segment_min(self, ranks, counts) -> tuple[np.ndarray, int]:
+        pos, walked = self.fm.segment_min_positions(
+            np.asarray(ranks, np.int64) + 1, counts)
+        return pos.cpu().numpy(), walked
+
+    def positions(self, rank: int, count: int) -> np.ndarray:
+        rows = torch.arange(int(rank) + 1, int(rank) + 1 + int(count),
+                            dtype=torch.int64, device=self.fm.device)
+        return self.fm.ranks_to_positions(rows).cpu().numpy()
+
+    def suffix_array(self) -> torch.Tensor:
+        return self.fm.suffix_array()
 
 
 class TopKCache:
@@ -195,48 +254,42 @@ class ScanPlanner:
     frozen table drops it).  ``capacity_factor`` is the routed
     dispatch's capacity (lower overflows hot tablets more often, which
     the retry corrects); batches of at least ``routed_min_batch``
-    queries route, smaller ones broadcast."""
+    queries route, smaller ones broadcast.  :attr:`base_rows` turns the
+    base's rows into text positions, live or frozen."""
 
     def __init__(self, store: TabletStore, *, mesh=None,
                  capacity_factor: float = 2.0,
                  routed_min_batch: int = 64, cache_size: int = 4096,
-                 max_pattern_len: Optional[int] = None,
                  tracer: Optional[Tracer] = None, fm=None):
-        self.fm = fm
-        self.mesh = mesh if fm is None else None   # frozen: one replica
-        self.store = store
-        self._check_mesh(store)
+        self.mesh = mesh
         self.capacity_factor = float(capacity_factor)
         self.routed_min_batch = int(routed_min_batch)
         self.cache_size = int(cache_size)
-        self.max_pattern_len = int(max_pattern_len or store.max_query_len)
         self.stats = PlannerStats()
         self.tracer = tracer if tracer is not None else Tracer("planner")
         self._cache = TopKCache(self.cache_size)
-        self._sa_host: Optional[np.ndarray] = None
-        self._tablets: Optional[list] = None
+        self.rebind(store, fm=fm)
 
-    def _check_mesh(self, store: TabletStore) -> None:
+    def rebind(self, store: TabletStore, *, fm=None) -> None:
+        """Bind ``store`` (the constructor's too, or a swap in place):
+        the tablet views are dropped, the result cache generation-bumped
+        and :attr:`base_rows` chosen.  ``fm`` moves the planner onto (or
+        off) the frozen tier: base reads then go through the FM index
+        instead of ``store.sa``, and a mesh is dropped (frozen tables
+        serve single-replica)."""
+        self.fm = fm
+        if fm is not None:
+            self.mesh = None
         if self.mesh is not None and store.n_pad % self.num_tablets:
             raise ValueError(
                 f"store.n_pad={store.n_pad} is not divisible by the "
                 f"mesh's {self.num_tablets} tablets — rebuild the store "
                 f"with num_tablets={self.num_tablets}")
-
-    def rebind(self, store: TabletStore, *, fm=None) -> None:
-        """Swap the underlying store in place; the host SA copy and the
-        tablet views are dropped and the result cache generation-bumped.
-        ``fm`` moves the planner onto (or off) the frozen tier: base reads
-        then go through the FM index instead of ``store.sa``, and a mesh
-        is dropped (frozen tables serve single-replica)."""
-        self.fm = fm
-        if fm is not None:
-            self.mesh = None
-        self._check_mesh(store)
         self.store = store
+        self.base_rows = (FrozenBaseRows(fm) if fm is not None
+                          else LiveBaseRows(store))
         self.max_pattern_len = int(store.max_query_len)
-        self._sa_host = None
-        self._tablets = None
+        self._tablets: Optional[list] = None
         self._cache.bump()
 
     def invalidate_cache(self) -> int:
@@ -414,40 +467,18 @@ class ScanPlanner:
                                       matches=tiers[2], first_g=tiers[3])
 
     # -- match enumeration --------------------------------------------------
-    def _sa(self) -> np.ndarray:
-        if self._sa_host is None:
-            self._sa_host = self.store.sa.cpu().numpy()
-        return self._sa_host
-
-    def locate_encoded(self, patt, plen, top_k: int = 8, *,
-                       mode: Optional[str] = None) -> np.ndarray:
-        res = self.scan_encoded(patt, plen, mode=mode)
-        return self.positions_from_result(res, top_k)
-
     def positions_from_result(self, res: MatchResult,
                               top_k: int = 8) -> np.ndarray:
-        """Up to ``top_k`` positions per query from the SA slice
-        ``[lb, lb + min(count, top_k))`` (suffix-rank order), -1 padded."""
+        """Up to ``top_k`` positions per query from the base ranks
+        ``[lb, lb + min(count, top_k))`` (suffix-rank order), -1 padded:
+        one :attr:`base_rows` ``positions`` call a matching query."""
         count = res.count.cpu().numpy()
-        found = res.found.cpu().numpy()
         first_rank = res.first_rank.cpu().numpy()
-        if self.fm is not None:
-            # frozen tier: no SA to slice — LF-walk the SA$ rows
-            # [lo, lo + min(count, top_k)) back to text positions
-            k = np.arange(max(int(top_k), 1))[None, :]
-            rows = first_rank[:, None] + 1 + k           # SA$ row = rank + 1
-            valid = ((found & (first_rank >= 0))[:, None]
-                     & (k < count[:, None]))
-            rows = np.clip(rows, 1, self.fm.n)
-            pos = self.fm.ranks_to_positions(rows).cpu().numpy()
-            return np.where(valid, pos, -1)[:, :top_k].astype(np.int64)
-        sa = self._sa()
-        lb = first_rank + self.store.pad_count
-        k = np.arange(max(int(top_k), 1))[None, :]
-        idx = lb[:, None] + k
-        valid = (found & (first_rank >= 0))[:, None] & (k < count[:, None])
-        idx = np.clip(idx, 0, sa.shape[0] - 1)
-        return np.where(valid, sa[idx], -1)[:, :top_k].astype(np.int64)
+        out = np.full((count.shape[0], int(top_k)), -1, np.int64)
+        for i in np.flatnonzero(res.found.cpu().numpy() & (first_rank >= 0)):
+            row = self.base_rows.positions(first_rank[i], min(count[i], top_k))
+            out[i, :row.size] = row
+        return out
 
     # -- string-level API with LRU cache ------------------------------------
     def encode(self, patterns: list[str]):

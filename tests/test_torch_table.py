@@ -183,8 +183,9 @@ def test_first_positions_are_the_heads_of_the_delta_positions():
     first = tiers.first_positions(tres.first_g)
     assert sum(g.size > 1 for g in full) > 10
     assert any(g.size == 0 for g in full)
-    for g, w in zip(first, full):
-        np.testing.assert_array_equal(g, w[:1])
+    assert first.shape == (len(pats),) and first.dtype == np.int64
+    np.testing.assert_array_equal(
+        first, [g[0] if g.size else -1 for g in full])
     text = np.concatenate([base] + chunks)
     got = pt.scan(pats)
     for i, p in enumerate(pats):
@@ -192,6 +193,44 @@ def test_first_positions_are_the_heads_of_the_delta_positions():
                 if (text[j:j + len(p)] == C.encode_dna(p)).all()]
         assert got.count[i] == len(want), p
         assert got.first_pos[i] == (want[0] if want else -1), p
+
+
+@pytest.mark.parametrize("frozen", [False, True])
+def test_base_rows_answer_in_real_sa_ranks(frozen, monkeypatch):
+    """The planner's ``base_rows`` (live: the padded SA on the device,
+    here on an 8-tablet store with pad rows; frozen: LF walks of the FM
+    index) answer in real-SA rank numbering as the reference table's SA
+    reads: each segment's smallest position (random segments, a count
+    of 1, the last rank, the whole SA), a segment's positions in rank
+    order (an empty one too), and the whole SA."""
+    from repro_torch.launch.mesh import HOST_DEVICES_ENV
+    base = C.random_dna(3001, seed=31)
+    jt = JTable.from_codes(base, is_dna=True)
+    want = np.asarray(jt.store.sa)[jt.store.pad_count:].astype(np.int64)
+    if not frozen:
+        monkeypatch.setenv(HOST_DEVICES_ENV, "8")
+    pt = SuffixTable.from_codes(base, device=CPU, is_dna=True)
+    if frozen:
+        pt.freeze(sample_rate=4)
+    else:
+        assert pt.store.pad_count == 7
+    rows = pt.planner.base_rows
+    assert rows.span == ("lf_walk" if frozen else "range_min")
+    n = len(base)
+    rng = np.random.default_rng(31)
+    ranks = np.concatenate([rng.integers(0, n, 40), [n - 1, 5, 0]])
+    counts = np.concatenate([1 + rng.integers(0, n - ranks[:40]),
+                             [1, 1, n]])
+    mins, walked = rows.segment_min(ranks, counts)
+    np.testing.assert_array_equal(
+        mins, [want[r:r + c].min() for r, c in zip(ranks, counts)])
+    assert walked == (0 if frozen else None)
+    for r, c in zip(ranks[-6:], counts[-6:]):
+        got = rows.positions(r, c)
+        assert got.dtype == np.int64
+        np.testing.assert_array_equal(got, want[r:r + c])
+    assert rows.positions(n - 1, 0).size == 0
+    np.testing.assert_array_equal(rows.suffix_array().numpy(), want)
 
 
 def test_planner_rebind_serves_the_new_store():
